@@ -1,6 +1,6 @@
-"""TPU-native privacy-preserving Structure-from-Motion.
+"""Privacy-preserving Structure-from-Motion in JAX, for NVIDIA GPUs.
 
-A brand-new JAX/XLA/Pallas implementation of the privacy-preserving SfM
+A brand-new JAX/XLA implementation of the privacy-preserving SfM
 pipeline (Geppert et al., ECCV 2020): SIFT keypoints are lifted to random 2D
 lines (half gravity-aligned) so that a processing server never observes point
 locations; every downstream stage — matching, minimal pose solvers,

@@ -10,9 +10,9 @@ mapped through acos to an angular distance; a match survives if
   * cross check: mutual nearest neighbors (cross_check=true)
 
 The FLANN path (4 kd-trees, 128 checks) is an *approximation* of exactly
-this; on TPU the exact (N1, 128) @ (128, N2) matmul rides the MXU and needs
-no trees.  Pairs with < min_num_matches matches are zeroed by the caller
-(``matching.cc:414-416``).
+this; here the exact (N1, 128) @ (128, N2) product runs as one dense
+matmul per pair and needs no trees.  Pairs with < min_num_matches matches
+are zeroed by the caller (``matching.cc:414-416``).
 """
 
 from __future__ import annotations
@@ -35,8 +35,11 @@ class MatchResult(NamedTuple):
 def descriptor_dots(desc1: jax.Array, desc2: jax.Array) -> jax.Array:
     """Raw dot-product matrix d1 . d2, (N1, N2) f32 (LARGER = closer).
 
-    Inputs are uint8 descriptors; the matmul runs in f32 on the MXU
-    (int8 inputs upcast — contraction dim 128 matches the MXU tile).
+    Inputs are uint8 descriptors upcast to f32.  The default precision is
+    exact here, TF32 tensor cores included: every uint8 value fits TF32's
+    11-bit significand, each product is accumulated in f32, and a sum of
+    128 products is at most 128 * 255^2 < 2^24, so every partial sum is an
+    integer f32 represents exactly.
     """
     d1 = desc1.astype(jnp.float32)
     d2 = desc2.astype(jnp.float32)
@@ -69,28 +72,14 @@ def _top2_max(dots: jax.Array, axis: int):
     return best, second, best_idx
 
 
-def _use_kernel(n1: int, n2: int, d: int) -> bool:
-    """Fused int8 Pallas path: TPU backends, lane-aligned shapes."""
-    return (jax.default_backend() != "cpu" and d == 128
-            and n1 % 128 == 0 and n2 % 128 == 0)
-
-
 def _top2_both_batched(d1s, d2s, valid1, valid2):
     """Top-2 dots + argmax in both directions for B pairs.
 
     d1s (B, N1, 128) u8, d2s (B, N2, 128) u8, valid (B, N).  Returns
     (bd12, sd12, idx12, bd21, sd21, idx21) raw-dot f32 / int32 arrays.
-    On TPU this streams int8 MXU tiles through a fused Pallas top-2
-    (the (N1, N2) dot matrix never exists in HBM); elsewhere it falls
-    back to the XLA argmax/mask/max formulation.
+    Each pair's (N1, N2) f32 dot matrix is materialized in device memory
+    (``features/schedulers.pairs_per_dispatch`` sizes batches for it).
     """
-    b, n1, d = d1s.shape
-    n2 = d2s.shape[1]
-    if _use_kernel(n1, n2, d):
-        from privacy_preserving_sfm_tpu.features import matching_kernels
-
-        return matching_kernels.top2_scores_bidir(d1s, d2s, valid1, valid2)
-
     def one(d1, d2, v1, v2):
         dots = descriptor_dots(d1, d2)
         dots = jnp.where(v1[:, None], dots, -BIG)

@@ -13,7 +13,8 @@ Host-side pipelines over the database, mirroring ``src/feature/matching.cc``:
 
 The per-pair kernel is the exact batched matcher (``features/matching``),
 executed in padded chunks so the device sees a few large dispatches instead
-of one per pair.
+of one per pair.  The chunk is sized from the device bytes each pair's
+(N1, N2) dot matrix costs (``pairs_per_dispatch``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _load_descriptor_table(db: Database, image_ids: Sequence[int],
     """Stack per-image descriptors into a padded (I, N, 128) table."""
     descs = [db.read_descriptors(iid) for iid in image_ids]
     n_max = max(1, max(len(d) for d in descs))
-    # Pad to a multiple of 128 rows for MXU-aligned matmuls.
+    # Pad to a multiple of 128 rows: few distinct shapes, aligned tiles.
     n_max = ((n_max + 127) // 128) * 128
     if n_pad is not None:
         n_max = max(n_max, n_pad)
@@ -48,6 +49,23 @@ def _load_descriptor_table(db: Database, image_ids: Sequence[int],
 
 
 _MATCH_JIT: Dict[Tuple, object] = {}
+
+# Device bytes one matcher dispatch may spend on temporaries (a JAX
+# process holds 60 GB of an 80 GB H100), and the temporary bytes per
+# element of a pair's (N1, N2) dot matrix: 4.13, read from
+# ``compiled.memory_analysis()`` of the jitted matcher on an H100 at
+# 64 pairs of 8192 x 8192 (PERF.md).  The f32 dot matrix is materialized
+# once per pair and the masked second-best reductions fuse into it.
+MATCH_TEMP_BYTES = 24 << 30
+_TEMP_BYTES_PER_DOT = 4.2
+MAX_PAIRS_PER_DISPATCH = 64
+
+
+def pairs_per_dispatch(n1: int, n2: Optional[int] = None) -> int:
+    """Pairs per matcher dispatch for padded descriptor counts n1 x n2."""
+    per_pair = _TEMP_BYTES_PER_DOT * n1 * (n1 if n2 is None else n2)
+    return int(max(1, min(MAX_PAIRS_PER_DISPATCH,
+                          MATCH_TEMP_BYTES // per_pair)))
 
 
 def _matcher_fn(max_ratio: float, max_distance: float, cross_check: bool):
@@ -65,7 +83,8 @@ def _matcher_fn(max_ratio: float, max_distance: float, cross_check: bool):
 def _match_resident(db: Database, image_ids: Sequence[int],
                     todo: Sequence[Tuple[int, int]],
                     max_ratio: float, max_distance: float, cross_check: bool,
-                    min_num_matches: int, chunk: int, verbose: bool,
+                    min_num_matches: int, chunk: Optional[int],
+                    verbose: bool,
                     max_num_matches: int = 32768,
                     n_pad: Optional[int] = None,
                     i_pad: Optional[int] = None,
@@ -74,6 +93,8 @@ def _match_resident(db: Database, image_ids: Sequence[int],
     """Match a pair list against a fully device-resident descriptor table."""
     index = {iid: i for i, iid in enumerate(image_ids)}
     table, valid = _load_descriptor_table(db, image_ids, n_pad, i_pad)
+    if chunk is None:
+        chunk = pairs_per_dispatch(table.shape[1])
     run_chunk = _matcher_fn(max_ratio, max_distance, cross_check)
     total = progress_total if progress_total is not None else len(todo)
 
@@ -109,7 +130,7 @@ def match_pair_list(db: Database, image_ids: Sequence[int],
                     pairs: Sequence[Tuple[int, int]],
                     max_ratio: float = 0.8, max_distance: float = 0.7,
                     cross_check: bool = True, min_num_matches: int = 15,
-                    chunk: int = 64, verbose: bool = False,
+                    chunk: Optional[int] = None, verbose: bool = False,
                     max_resident_images: Optional[int] = 256,
                     max_num_matches: int = 32768) -> int:
     """Match and persist a pair list; returns #pairs with >= min matches.
@@ -117,10 +138,11 @@ def match_pair_list(db: Database, image_ids: Sequence[int],
     Bounded device memory: when more than ``max_resident_images`` images
     are involved, images are partitioned into blocks and pairs are matched
     block-against-block with only the two blocks' descriptors resident —
-    the TPU-native equivalent of the reference's block-exhaustive loop +
-    LRU ``FeatureMatcherCache`` (``matching.h:125-151``, ``matching.cc:
+    the device-memory-bounded twin of the reference's block-exhaustive
+    loop + LRU ``FeatureMatcherCache`` (``matching.h:125-151``, ``matching.cc:
     436-498``).  Block tables are padded to a common shape so every block
-    pair reuses one compiled matcher.
+    pair reuses one compiled matcher.  ``chunk`` (pairs per dispatch)
+    defaults to ``pairs_per_dispatch`` of the padded table.
     """
     if not pairs:
         return 0

@@ -2,7 +2,7 @@
 
 Functional replacement for the reference's VLFeat CPU path
 (``src/feature/sift.cc:399-545``, ``lib/VLFeat/vl/sift.c``) and SiftGPU,
-re-designed for TPU:
+re-designed for an accelerator:
 
   * Gaussian pyramid: separable depthwise convolutions (static kernel sizes
     from the static sigma schedule), octave downsampling by strided slice;
@@ -73,20 +73,19 @@ class SiftOptions(NamedTuple):
     estimate_affine_shape: bool = False
     affine_iterations: int = 10
     # Per-keypoint stage backend.
-    #   "dense"  — TPU-first: orientation histograms and descriptor
+    #   "dense"  — accelerator-first: orientation histograms and descriptor
     #     spatial bins are computed DENSELY per gaussian level as
     #     channelized convolutions (36 soft-binned gradient channels *
     #     Gaussian window; 8 channels * tent at the descriptor bin
     #     pitch), then each keypoint samples a handful of positions —
-    #     ~25x fewer random gathers than "gather" (the HBM-latency-bound
+    #     ~25x fewer random gathers than "gather" (the memory-latency-bound
     #     stage), at the cost of level-quantized window sigmas and an
     #     axis-aligned (unrotated) spatial tent.  Repeatability/matching
     #     parity is gated by tools/frontend_eval.py.
     #   "gather" — per-keypoint sampled bilinear gathers (VLFeat-faithful
     #     windows); required for estimate_affine_shape / DSP.
     descriptor_mode: str = "dense"
-    # Round-5 dense-stage HBM diet (the stage is bandwidth-bound: round 4
-    # measured it at 418 ms of the 483 ms single-image wall).
+    # Dense-stage memory-traffic diet (the stage is bandwidth-bound).
     #   dense_half_res — 2x2 average-pool the 36+8 soft-binned gradient
     #     channels BEFORE the window filters and sample keypoints from
     #     the half-resolution filtered fields.  Legit because the fields
@@ -96,7 +95,7 @@ class SiftOptions(NamedTuple):
     #     px^2) to windows of variance >= 9 px^2 and quarters channel
     #     traffic.  Accuracy neutrality gated by tools/frontend_eval.py.
     #   dense_bf16 — run the channel filters in bf16 (f32 accumulate),
-    #     halving conv HBM traffic; descriptors quantize to uint8/512
+    #     halving conv memory traffic; descriptors quantize to uint8/512
     #     (~0.2 % steps) so bf16's 0.4 % rounding is at the noise floor.
     dense_half_res: bool = True
     dense_bf16: bool = True
@@ -339,7 +338,7 @@ def _channel_filter(ch: jax.Array, k: jax.Array,
     """Separable 2D filter of a channel stack (C, H, W), channels=batch.
 
     ``bf16`` runs both 1D convs with bfloat16 operands and f32
-    accumulation — half the HBM traffic on the bandwidth-bound dense
+    accumulation — half the memory traffic on the bandwidth-bound dense
     stage for ~0.4 % rounding on channel masses (below the descriptor's
     uint8 quantization step).
     """
@@ -432,8 +431,8 @@ def _dense_stage(gauss, glev, xr, yr, sigma, peak_val, valid,
 
     def _pool2(ch):
         # reduce_window, NOT pad+reshape+mean: the 5-D reshape forces a
-        # transposed HBM copy under the batch vmap (22.6 GB at B=8 on the
-        # upsampled first octave -> compile-time OOM, chain run 2026-08-20).
+        # transposed device-memory copy under the batch vmap (22.6 GB at
+        # B=8 on the upsampled first octave: a compile-time OOM).
         # Pool in bf16 when enabled: the pooled stack is the largest
         # channel tensor this stage materializes.
         if opts.dense_bf16:
@@ -548,10 +547,9 @@ def _octave_features(octave_img: jax.Array, octave_idx: int,
     plus validity; the caller rescales to image coordinates.
 
     The per-keypoint orientation/descriptor stages are vmapped bilinear
-    gathers over flat gradient tensors.  (A Pallas patch-DMA variant was
-    measured ~1000x slower than this XLA formulation on v5e — per-keypoint
-    patch windows sized for the octave's max sigma waste nearly all their
-    DMA and VPU work — and was removed; see git history.)
+    gathers over flat gradient tensors.  (A patch-copy kernel variant, with
+    per-keypoint windows sized for the octave's max sigma, wasted nearly
+    all of its copies and arithmetic and was removed; see git history.)
     """
     S = opts.octave_resolution
     sigma0 = opts.sigma0

@@ -5,8 +5,10 @@ Drop-in accelerated implementation of ``CorrespondenceGraph`` plus the
 loops, in C++ (the reference keeps these in C++ too:
 ``src/base/correspondence_graph.cc``, ``src/sfm/incremental_mapper.cc``).
 
-The library auto-builds on first use (g++, no external deps); everything
-falls back to the pure-Python implementation when unavailable.
+The library builds on first use (g++, no external deps) and rebuilds when
+``graph.cpp`` is newer than it or it fails to load, so a binary copied in
+from another machine is never trusted blindly; everything falls back to
+the pure-Python implementation when unavailable.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libppsfm_native.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "graph.cpp")
 
 _lib = None
 
@@ -29,13 +32,15 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
-                           check=True, capture_output=True)
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            raise RuntimeError(f"native build failed: {e}")
-    lib = ctypes.CDLL(_LIB_PATH)
+    stale = (not os.path.exists(_LIB_PATH)
+             or os.path.getmtime(_SRC_PATH) > os.path.getmtime(_LIB_PATH))
+    if stale:
+        build()
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        build()
+        lib = ctypes.CDLL(_LIB_PATH)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.ppsfm_graph_create.restype = ctypes.c_void_p
@@ -67,6 +72,15 @@ def _load():
     lib.ppsfm_tracks_destroy.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib
+
+
+def build() -> None:
+    """Compile ``native/graph.cpp`` into the library (``native/build.sh``)."""
+    try:
+        subprocess.run(["sh", os.path.join(_NATIVE_DIR, "build.sh")],
+                       check=True, capture_output=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        raise RuntimeError(f"native build failed: {e}")
 
 
 def available() -> bool:

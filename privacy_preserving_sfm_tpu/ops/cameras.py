@@ -17,7 +17,7 @@ interoperate:
   RADIAL_FISHEYE        f, cx, cy, k1, k2
   THIN_PRISM_FISHEYE    fx, fy, cx, cy, k1, k2, p1, p2, k3, k4, sx1, sy1
 
-Design differences from the reference (TPU-first):
+Design differences from the reference (accelerator-first):
   * every op broadcasts over a leading batch of points; the camera model is a
     *static* (trace-time) choice, so XLA sees straight-line code per model;
   * iterative undistortion uses a fixed-iteration Newton solve with an
@@ -240,9 +240,10 @@ _NEWTON_ITERS = 20
 def world_to_image_uv(model: str, params, u, v, xp=jnp):
     """Component-wise ``WorldToImage``: (u, v) arrays -> (x_pix, y_pix).
 
-    Structure-of-arrays variant of :func:`world_to_image` for TPU-friendly
-    layouts: no trailing size-2 axis is ever materialized, so callers can
-    keep big batch axes (tracks, combos) in the tiled minor dimensions.
+    Structure-of-arrays variant of :func:`world_to_image` for
+    accelerator-friendly layouts: no trailing size-2 axis is ever
+    materialized, so callers can keep big batch axes (tracks, combos) in
+    the tiled minor dimensions.
     ``params`` must broadcast against ``u``/``v`` after its last axis is
     consumed by the parameter split (e.g. params (T, N, 1, P) with
     u, v (T, N, C)).

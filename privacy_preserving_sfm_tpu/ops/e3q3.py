@@ -2,7 +2,7 @@
 
 Behavioral equivalent of the reference's re3q3 (``lib/re3q3/re3q3/re3q3.h``,
 itself a re-implementation of E3Q3 with the stability tricks of Zhou et al.
-ACCV 2018), but derived and implemented differently, TPU-first:
+ACCV 2018), but derived and implemented differently, accelerator-first:
 
   * elimination: treat the three quadrics as linear in (y^2, z^2, yz) given
     x, solve for them, and rewrite as three relations E1: y^2 = a0 y + b0 z
@@ -13,7 +13,8 @@ ACCV 2018), but derived and implemented differently, TPU-first:
     (The reference reaches the same determinant through hand-expanded
     coefficient formulas; we build it with small polynomial convolutions.)
   * roots: Aberth–Ehrlich simultaneous iteration (``ops/polynomial.py``)
-    instead of a companion-matrix eigensolve (not supported on TPU).
+    instead of a companion-matrix eigensolve (a sequential, branchy QR
+    iteration that batches poorly on an accelerator).
   * back-substitution: least-squares solve of M(x) [y, z]^T = -M(x)[:, 2]
     over all three rows (the reference uses a 2x2 subsystem).
   * stability: the same best-pivot variable permutation as the reference
@@ -21,7 +22,7 @@ ACCV 2018), but derived and implemented differently, TPU-first:
     quadratic-block matrix) plus a random affine change of variables for
     degenerate instances, here applied branch-free via masking; and a final
     damped-Newton polish on the original quadrics, which also rescues the
-    fp32 TPU path.
+    fp32 path.
 
 Monomial order of the input coefficients (matching the reference):
 ``x^2, xy, xz, y^2, yz, z^2, x, y, z, 1``.

@@ -1,7 +1,8 @@
-"""Closed-form small-matrix kernels (batched, TPU-friendly).
+"""Closed-form small-matrix kernels (batched, accelerator-friendly).
 
 ``jnp.linalg.*`` routes tiny dense problems through generic LAPACK-style
-lowerings that are slow (or fragile) on TPU; every solver in this framework
+lowerings (one library call per tiny matrix) that are slow on an
+accelerator; every solver in this framework
 needs only 2x2/3x3/4x4 systems, so we provide explicit cofactor/Cramer
 kernels that fuse into surrounding elementwise code.  All functions
 broadcast over leading batch dimensions.

@@ -12,7 +12,7 @@ through the *normalized* image point instead of the point itself:
 Reference: line lifting ``src/feature/extraction.cc:437-504``; residuals
 ``src/base/projection.cc:162-260``; BA cost ``src/base/cost_functions.h:62-100``.
 
-All kernels are batched over observations and shaped for the VPU (elementwise)
+All kernels are batched over observations and purely elementwise,
 with optional masking in place of the reference's early-return MAX sentinels.
 """
 

@@ -2,8 +2,8 @@
 
 The incremental-mapper orchestration (Merge/Complete/Continue/filtering)
 evaluates line reprojection errors for small, data-dependent sets of
-observations.  Dispatching those to the TPU costs ~30 us per call
-(round-1 bottleneck: hours at ETH scale); these numpy twins evaluate the
+observations.  Dispatching those to the device costs a launch and a
+transfer per call (hours at ETH scale); these numpy twins evaluate the
 exact same math (``src/base/projection.cc:162-260`` semantics) on host in
 microseconds, batched over arbitrary observation sets.
 

@@ -1,10 +1,10 @@
 """Batched univariate polynomial arithmetic and root finding.
 
 The reference extracts polynomial roots with a nonsymmetric 8x8 companion
-matrix eigensolve (``lib/re3q3/re3q3/re3q3.h:152-165``), which has no native
-TPU lowering.  We instead run a *fixed-iteration Aberth–Ehrlich* simultaneous
+matrix eigensolve (``lib/re3q3/re3q3/re3q3.h:152-165``), which batches poorly on
+an accelerator.  We instead run a *fixed-iteration Aberth–Ehrlich* simultaneous
 root finder in complex arithmetic (pairs of reals), which vectorizes over
-both the batch and the root dimension — a few dozen VPU-friendly iterations
+both the batch and the root dimension — a few dozen elementwise iterations
 instead of a sequential QR eigensolve — followed by Newton polishing of the
 real roots.
 

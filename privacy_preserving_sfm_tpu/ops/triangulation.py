@@ -4,7 +4,7 @@ The core kernel solves the null space of the stacked constraint matrix with
 rows ``l_i^T P_i`` (a point X on every observed line plane satisfies
 ``l_i^T P_i X_hom = 0``) — reference ``src/base/triangulation.cc:41-57``.
 
-TPU-first design: instead of an SVD of the (N, 4) matrix we take the
+Accelerator-first design: instead of an SVD of the (N, 4) matrix we take the
 eigenvector of the smallest eigenvalue of the 4x4 Gram matrix ``A^T A`` via a
 fixed-iteration Jacobi eigensolver (``ops/linalg.symmetric_eig_smallest``) —
 batched, branch-free, and much cheaper than ``jnp.linalg.svd`` for tall-thin

@@ -1,7 +1,7 @@
 """Optimization: point-to-line bundle adjustment (Levenberg-Marquardt).
 
 Replaces the reference's Ceres-based ``BundleAdjuster``
-(``src/optim/bundle_adjustment.{h,cc}``) with a TPU-native implicit
+(``src/optim/bundle_adjustment.{h,cc}``) with an accelerator-native implicit
 Schur-complement LM: the point blocks are eliminated analytically and the
 reduced camera system is solved with Schur-Jacobi-preconditioned CG, all as
 segment reductions over a flat observation array — one jitted kernel for

@@ -37,8 +37,8 @@ The camera-side variable of the Schur system becomes
 and the implicit-Schur CG of ``optim/ba.py`` extends with the
 pose-intrinsics / intrinsics-point coupling blocks; all reductions stay
 ``segment_sum`` over observation tables.  This path is the rare
-uncalibrated regime, so it reuses the flat SoA layout (the dense-block /
-fused-Pallas solvers keep the constant-intrinsics fast path).
+uncalibrated regime, so it reuses the flat SoA layout (the dense-block and
+SoA explicit-Schur solvers keep the constant-intrinsics fast path).
 
 The per-parameter mask (U, Pr) is built from the model's
 focal/principal/extra index groups (``ops/cameras.MODELS``), mirroring

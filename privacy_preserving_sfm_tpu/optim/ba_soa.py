@@ -2,9 +2,8 @@
 
 The dense-block solver (``optim/ba_dense.py``) materializes per-observation
 tensors with tiny trailing dims — Jc (P, K, 2, 6), Jp (P, K, 2, 3),
-Hcp (P, K, 6, 3) — each of which pads to (8, 128) TPU tiles, inflating HBM
-traffic by up to ~84x (measured: the normal-equation + Schur build was
-10 ms of the 15.8 ms LM iteration on v5e at 120k observations).
+Hcp (P, K, 6, 3) — whose minor dimensions waste most of every memory
+transaction and vector lane.
 
 Here every per-observation quantity is a tuple of **(K, P) scalar
 component arrays** (big axis minor, zero padding waste):
@@ -16,19 +15,18 @@ component arrays** (big axis minor, zero padding waste):
 
 Point-side reductions (Hpp, gp, back-substitution) collapse over K into
 (P,) components; the camera side reduces all 27 unique Hcc/gc components
-with ONE (27, K*P) @ (K*P, C) MXU contraction; the Schur correction
-S_corr = V^T V reuses the fused Pallas Gram kernel of ``schur_pcg`` (the
-(3P, 6C) V matrix never exists in HBM) after a single (K, 18, P) ->
-(P, K*18) repack.  The damped 3x3 point-block inverse and its Cholesky
-factor are closed-form scalar expressions on the six Hpp components.
+with ONE (27, K*P) @ (K*P, C) contraction; the Schur correction
+S_corr = V^T V is one Gram matmul (``schur_pcg.gram_soa_xla``) over the
+(18*K, P) component stack.  The damped 3x3 point-block inverse and its
+Cholesky factor are closed-form scalar expressions on the six Hpp
+components.
 
 Semantics are identical to ``ba_dense.bundle_adjust_dense`` with
 ``schur_mode="explicit"`` (same LM damping/accept/reject, same CG);
-tested for agreement in tests/test_ba_soa.py.  Layout decision recorded
-in reports/ba_layout_probe_r4 (tools/soa_ba_probe.py).
+tested for agreement in tests/test_ba_soa.py.
 
 Replaces the role of Ceres' DENSE_SCHUR/SPARSE_SCHUR assembly
-(``/root/reference/src/optim/bundle_adjustment.cc:276-488``).
+(reference ``src/optim/bundle_adjustment.cc:276-488``).
 """
 
 from __future__ import annotations
@@ -40,10 +38,12 @@ from privacy_preserving_sfm_tpu.ops import lie, lines as line_ops
 from privacy_preserving_sfm_tpu.optim import ba as ba_mod
 from privacy_preserving_sfm_tpu.optim import ba_dense, schur_pcg
 
-# Element-count ceiling for the resident (K*P, C) camera one-hot; above
-# it gather_obs scans transient chunks (tests lower it to exercise the
-# chunked path at toy sizes).
+# Element-count ceiling for the resident (K*P, C) camera one-hot: 2^28 f32
+# elements is 1 GiB of device memory held for the whole solve.  Above it
+# gather_obs scans transient chunks instead (tests lower it to exercise
+# the chunked path at toy sizes).
 _ONEHOT_CHUNK_LIMIT = 1 << 28
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _res_scalar(dc, dX, q, t, Xp, par, l0, l1, l2, camera_model):
@@ -61,10 +61,9 @@ def _soa_residuals_and_jacobians(cam_comps, X_comps, l_comps,
 
     ``cam_comps`` is a tuple of 4 + 3 + Pr per-observation (K, P) arrays
     (quaternion, tvec, intrinsics components) — the minor axis is always
-    P, so every HBM pass is sequential and full-lane.  (A (K, P, 4)
-    gathered tensor pads its 4-wide minor dim to 128 lanes: ~3 %
-    utilization, and XLA rematerializes the random gather into every
-    consumer fusion — measured 6 x 1.18 ms per LM iteration on v5e.)
+    P, so every device-memory pass is sequential and coalesced (a
+    (K, P, 4) gathered tensor would read 4-wide rows, and XLA would
+    rematerialize the random gather into every consumer fusion).
     ``X_comps``: 3 x (K, P) broadcast point coordinates.
 
     Returns (r1, r2, jc, jp): jc 12 components (rows r1 then r2, 6 dofs
@@ -140,7 +139,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     bench) falls back to ``bundle_adjust_dense`` beyond that.
 
     Structural differences from ``bundle_adjust_dense`` (same LM
-    semantics, measured on v5e):
+    semantics):
 
     * **One residual pass per iteration.**  The trial point's robust cost
       and its normal equations come out of the same fused build; on
@@ -149,12 +148,10 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
       plus a rebuild inside a ``lax.cond`` (whose passthrough branch
       copies the big carried tensors).
     * **Select-based carry** of the normal as a handful of stacked
-      (K, P)-minor component arrays — no (…, 6, 3) trailing dims that pad
-      to (8, 128) tiles, no cond-boundary copies.
-    * The Schur Gram runs in the SoA-native Pallas kernel
-      (``schur_pcg.gram_soa``: V panels live in VMEM with points on the
-      lane axis, 21 upper blocks only) — zero repack; the XLA one-hot
-      fallback (``gram_soa_xla``) covers CPU and oversize shapes.
+      (K, P)-minor component arrays — no (…, 6, 3) trailing dims, no
+      cond-boundary copies.
+    * The Schur Gram is one matmul over the (18*K, P) component stack
+      (``schur_pcg.gram_soa_xla``) — no (P, K, 3, 6) repack.
     """
     C = problem.qvecs.shape[0]
     P, K = problem.obs_cam.shape
@@ -172,7 +169,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     oc_kp = problem.obs_cam.T  # (K, P)
     w_kp = problem.obs_weight.T.astype(dtype)  # (K, P)
     l_comps = tuple(problem.obs_line[..., i].T for i in range(3))
-    # The static one-hot that backs the MXU camera gather is (K*P, C)
+    # The static one-hot that backs the camera gather is (K*P, C)
     # resident; past ~1 GiB (the >512-camera regime) it is rebuilt in
     # transient chunks inside gather_obs instead.
     chunked_onehot = K * P * C > _ONEHOT_CHUNK_LIMIT
@@ -186,44 +183,32 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
     dof_kp = tuple(problem.cam_dof_mask[:, i][oc_kp] for i in range(6))
     pmask = problem.point_mask.astype(dtype)  # (P,)
 
-    on_tpu = jax.default_backend() != "cpu"
-    use_gram_kernel = (on_tpu and schur_pcg.gram_soa_fits(C, K)
-                       and options.gram_mode != "xla")
-    use_gram_blocked = (not use_gram_kernel and on_tpu
-                        and schur_pcg.gram_soa_blocked_fits(C, K)
-                        and options.gram_mode != "xla")
-    import os as _os
-    use_pallas_pcg = (jax.default_backend() != "cpu"
-                      and _os.environ.get("PPSFM_PCG", "xla") == "fused")
-
     n_par = problem.cam_params.shape[1]
 
     def _onehot_gather(mat_rc):
         """(R, C) camera-indexed rows -> (R, K*P) per-observation values.
 
-        One MXU contraction against the one-hot does ALL the camera
-        gathers at once (random row-gathers are scalar-unit-bound on TPU
-        and XLA rematerializes them into every consumer fusion).
-        HIGHEST precision: the TPU's default bf16 single-pass matmul
-        would round the gathered quaternions; with the hi+lo split the
-        one-hot selection is f32-exact.  In the chunked (>512-camera)
-        regime transient (CH, C) one-hots are scanned instead (id -1
-        padding rows select nothing -> zero columns, sliced off).
+        One contraction against the one-hot does ALL the camera gathers
+        at once (XLA would otherwise rematerialize a random gather into
+        every consumer fusion).  HIGHEST precision: a default-precision
+        f32 matmul may round to TF32 (or bf16) and perturb the gathered
+        quaternions; at HIGHEST the one-hot selection is f32-exact.  In
+        the chunked (>512-camera) regime transient (CH, C) one-hots are
+        scanned instead (id -1 padding rows select nothing -> zero
+        columns, sliced off).
         """
         if chunked_onehot:
             def chunk(_, oc_c):
                 oh = jax.nn.one_hot(oc_c, C, dtype=dtype)
                 return None, jax.lax.dot_general(
                     mat_rc, oh, (((1,), (1,)), ((), ())),
-                    preferred_element_type=dtype,
-                    precision=jax.lax.Precision.HIGHEST)
+                    preferred_element_type=dtype, precision=HIGHEST)
             _, gs = jax.lax.scan(chunk, None, oc_chunks)
             g = jnp.transpose(gs, (1, 0, 2)).reshape(mat_rc.shape[0], -1)
             return g[:, :K * P]
         return jax.lax.dot_general(
             mat_rc, onehot_n, (((1,), (1,)), ((), ())),
-            preferred_element_type=dtype,
-            precision=jax.lax.Precision.HIGHEST)
+            preferred_element_type=dtype, precision=HIGHEST)
 
     def gather_obs(q, t, X):
         """Per-observation camera quantities as (K, P) component arrays.
@@ -267,7 +252,8 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         # Cross blocks: (18, K, P) components, i (cam dof) major.
         hcp = jnp.stack([(jc[i] * jp[a] + jc[6 + i] * jp[3 + a]) * w
                          for i in range(6) for a in range(3)])
-        # Camera side: 21 Hcc upper-tri + 6 gc -> one MXU contraction.
+        # Camera side: 21 Hcc upper-tri + 6 gc -> one contraction (HIGHEST:
+        # exact per-camera sums of the f32 components).
         cam_rows = [(jc[i] * jc[j] + jc[6 + i] * jc[6 + j]) * w
                     for i in range(6) for j in range(i, 6)]
         cam_rows += [(jc[i] * r1 + jc[6 + i] * r2) * w for i in range(6)]
@@ -281,7 +267,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
                 st_c, oc_c = xs
                 oh = jax.nn.one_hot(oc_c, C, dtype=dtype)
                 return acc + jax.lax.dot_general(
-                    st_c, oh, (((1,), (0,)), ((), ())),
+                    st_c, oh, (((1,), (0,)), ((), ())), precision=HIGHEST,
                     preferred_element_type=dtype), None
 
             cam_sums, _ = jax.lax.scan(
@@ -289,7 +275,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         else:
             cam_sums = jax.lax.dot_general(
                 stackc, onehot_n, (((1,), (0,)), ((), ())),
-                preferred_element_type=dtype)  # (27, C)
+                precision=HIGHEST, preferred_element_type=dtype)  # (27, C)
         return cost, hpp, gp, hcp, cam_sums
 
     # Static row permutation expanding the 21 upper-tri components to the
@@ -332,21 +318,11 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
                         l33 * gp[2]])
 
         # (18, K, P) a-major stack -> (18K, P) rows (a*6+i)*K + k: the
-        # native input of gram_soa — no (P, K, 3, 6) repack.
+        # native input of gram_soa_xla — no (P, K, 3, 6) repack.
         lh_stack = jnp.stack([lh(a, i) for a in range(3)
                               for i in range(6)]).reshape(18 * K, P)
-        if use_gram_kernel:
-            S_corr, rhs_corr = schur_pcg.gram_soa(
-                lh_stack, gL, oc_kp, C,
-                precision=options.schur_precision)
-        elif use_gram_blocked:
-            S_corr, rhs_corr = schur_pcg.gram_soa_blocked(
-                lh_stack, gL, oc_kp, C,
-                precision=options.schur_precision)
-        else:
-            S_corr, rhs_corr = schur_pcg.gram_soa_xla(
-                lh_stack, gL, oc_kp, C,
-                precision=options.schur_precision)
+        S_corr, rhs_corr = schur_pcg.gram_soa_xla(
+            lh_stack, gL, oc_kp, C, precision=options.schur_precision)
         rhs = gc.reshape(n) - rhs_corr
 
         SJ = dHcc - schur_pcg.diag_blocks(S_corr, C)
@@ -355,10 +331,7 @@ def bundle_adjust_soa(problem: ba_dense.DenseBAProblem, camera_model: str,
         S = S - jnp.pad(S_corr, ((0, n_pad - n), (0, n_pad - n)))
         Minv = schur_pcg.embed_block_diag(SJ_inv, n_pad, pad_value=1.0)
         rhs_p = jnp.pad(rhs, (0, n_pad - n))
-        if use_pallas_pcg:
-            dcf = schur_pcg.pcg_fused(S, Minv, rhs_p, options.cg_iterations)
-        else:
-            dcf = schur_pcg.pcg_xla(S, Minv, rhs_p, options.cg_iterations)
+        dcf = schur_pcg.pcg_xla(S, Minv, rhs_p, options.cg_iterations)
         dc = dcf[:n].reshape(C, 6)
         dc = jnp.where(jnp.isfinite(dc), dc, 0.0)
 

@@ -1,19 +1,16 @@
-"""Explicit Schur-complement PCG: the DENSE_SCHUR regime, TPU-first.
+"""Explicit Schur-complement PCG: the DENSE_SCHUR regime in XLA.
 
 The implicit-Schur CG in ``optim/ba.py``/``ba_dense.py`` evaluates ``S v``
-with a chain of ~15 small XLA ops per CG step; on the TPU each op carries
-fixed dispatch latency, so at reconstruction scale (C ~ 100 cameras) the
-solve is latency-bound at <0.1 % MFU.  For small-to-medium camera systems
-(the reference picks DENSE_SCHUR below 50 images and SPARSE_SCHUR below
-1000, ``/root/reference/src/optim/bundle_adjustment.cc:276-286``) the right
-TPU design is the opposite of Ceres' sparse factorization:
+with a chain of ~15 small ops per CG step, each one a kernel launch.  For
+small-to-medium camera systems (the reference picks DENSE_SCHUR below 50
+images and SPARSE_SCHUR below 1000,
+reference ``src/optim/bundle_adjustment.cc:276-286``) the
+accelerator design is the opposite of Ceres' sparse factorization:
 
 1. Materialize the reduced camera system ``S = dHcc - E Hpp^{-1} E^T`` as a
-   single dense (6C, 6C) matrix with two large MXU contractions (the
+   single dense (6C, 6C) matrix with one large Gram matmul (the
    scatter-free "U-matrix" factorization below), and
-2. run the *entire* preconditioned-CG loop in one Pallas kernel with S, the
-   block-Jacobi preconditioner, and all CG vectors resident in VMEM — zero
-   per-step dispatch, pure MXU/VPU work.
+2. run the preconditioned CG on it as dense matvecs in one XLA loop.
 
 U-matrix factorization (no scatters): with per-point observation blocks
 ``Hcp (P, K, 6, 3)`` (K = track-length bucket) and one-hot camera
@@ -26,532 +23,69 @@ assignment ``G (P, K, C)``,
 Both the correction and the right-hand side come out of dense
 contractions; the only "scatter" left is embedding C diagonal 6x6 blocks,
 which is a trivial indexed write.
+
+Precision, per matmul: a float32 matmul may run in TF32 on the GPU by
+default, which keeps about three decimal digits.  Every contraction here
+asks for ``Precision.HIGHEST`` (full f32), except the Gram under
+``schur_precision="bf16"``, which takes bf16 operands with f32
+accumulation by design.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
-_LANE = 128
+HIGHEST = jax.lax.Precision.HIGHEST
+# The dense system is padded to a multiple of this many rows.
+_ALIGN = 128
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _pcg_kernel(s_ref, minv_ref, rhs_ref, x_ref, *, iters: int):
-    """Whole PCG loop on VMEM-resident S (N, N), Minv (N, N), rhs (1, N)."""
-    S = s_ref[:]
-    Minv = minv_ref[:]
-    r0 = rhs_ref[:]
-    z0 = jnp.dot(r0, Minv, preferred_element_type=r0.dtype)
-
-    def body(i, state):
-        x, r, p, rz = state
-        # S and Minv are symmetric, so the row-vector form p @ S == (S p)^T.
-        Ap = jnp.dot(p, S, preferred_element_type=r0.dtype)
-        pAp = jnp.sum(p * Ap)
-        alpha = rz / jnp.where(jnp.abs(pAp) < 1e-30, 1e-30, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = jnp.dot(r, Minv, preferred_element_type=r0.dtype)
-        rz_new = jnp.sum(r * z)
-        beta = rz_new / jnp.where(jnp.abs(rz) < 1e-30, 1e-30, rz)
-        return x, r, z + beta * p, rz_new
-
-    x0 = jnp.zeros_like(r0)
-    x, _, _, _ = jax.lax.fori_loop(
-        0, iters, body, (x0, r0, z0, jnp.sum(r0 * z0)))
-    x_ref[:] = x
-
-
-@functools.partial(jax.jit, static_argnames=("iters", "interpret"))
-def pcg_fused(S: jax.Array, Minv: jax.Array, rhs: jax.Array,
-              iters: int, interpret: bool = False) -> jax.Array:
-    """Solve S x = rhs by PCG in one fused Pallas kernel.
-
-    S, Minv: (N, N) symmetric, N a multiple of 128 (pad with identity);
-    rhs: (N,).  Returns x (N,).  ``interpret=True`` runs the Pallas
-    interpreter (CPU testing).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = S.shape[0]
-    rhs2 = rhs.reshape(1, n)
-    # Scoped-VMEM cap sized to the kernel's actual footprint (S + Minv +
-    # CG vectors, x2 slack), not a blanket 100 MB: an oversized cap
-    # interacts with the surrounding program's VMEM pressure and was
-    # implicated in TPU worker faults when this kernel ran inside the
-    # mapper's full LM program (round 3).  Floor at the 16 MB default.
-    need = 4 * (2 * n * n + 16 * n)
-    vmem_cap = max(16 * 1024 * 1024, min(2 * need, 100 * 1024 * 1024))
-    out = pl.pallas_call(
-        functools.partial(_pcg_kernel, iters=iters),
-        out_shape=jax.ShapeDtypeStruct((1, n), rhs.dtype),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=vmem_cap),
-        interpret=interpret,
-    )(S, Minv, rhs2)
-    return out.reshape(n)
-
-
 def pcg_xla(S: jax.Array, Minv: jax.Array, rhs: jax.Array,
             iters: int) -> jax.Array:
-    """Reference XLA PCG on the explicit system (used on CPU and in tests)."""
+    """Preconditioned CG on the explicit system S x = rhs, ``iters`` steps.
+
+    S, Minv: (N, N) symmetric (Minv the block-Jacobi inverse); rhs (N,).
+    """
 
     def body(i, state):
         x, r, p, rz = state
-        Ap = S @ p
+        Ap = jnp.matmul(S, p, precision=HIGHEST)
         pAp = jnp.sum(p * Ap)
         alpha = rz / jnp.where(jnp.abs(pAp) < 1e-30, 1e-30, pAp)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = Minv @ r
+        z = jnp.matmul(Minv, r, precision=HIGHEST)
         rz_new = jnp.sum(r * z)
         beta = rz_new / jnp.where(jnp.abs(rz) < 1e-30, 1e-30, rz)
         return x, r, z + beta * p, rz_new
 
-    z0 = Minv @ rhs
+    z0 = jnp.matmul(Minv, rhs, precision=HIGHEST)
     x, _, _, _ = jax.lax.fori_loop(
         0, iters, body, (jnp.zeros_like(rhs), rhs, z0, jnp.sum(rhs * z0)))
     return x
 
 
-def gram_fits(num_cams: int, k_bucket: int) -> bool:
-    """True when the AoS ``gram_fused`` kernel supports the problem shape.
+def gram_soa_xla(lh_stack: jax.Array, gL: jax.Array, cam_kp: jax.Array,
+                 num_cams: int, precision: str = "f32"):
+    """Schur correction S_corr = V^T V and rhs_corr = V^T (L^T gp).
 
-    C_pad = 128 runs 512-point tiles; C_pad = 256 shrinks the tile to 128
-    points so the 18 V panels + the (1536, 1536) Gram accumulator still
-    fit in VMEM (~12 MB).  The AoS kernel stops at C_pad = 256 — its
-    (P, K*18) HBM repack layout was only ever validated there; the SoA
-    path (``gram_soa_fits``) carries 256 < C <= 512, matching the
-    ``explicit_fits`` ceiling.  The per-k unrolled V build caps the track
-    bucket (K > 16 would blow up both VPU time and Mosaic unroll).
-    """
-    return num_cams <= 2 * _LANE and k_bucket <= 16
-
-
-def gram_soa_fits(num_cams: int, k_bucket: int) -> bool:
-    """True when the SoA ``gram_soa`` Pallas kernel supports the shape.
-
-    Residents at the C_pad = 512 ceiling (TP = 128 point tiles): the
-    (6*C_pad, 6*C_pad) f32 Gram accumulator is 37.8 MB and the 18
-    (C_pad, TP) V panels 4.7 MB — inside the kernel's 100 MB
-    ``vmem_limit_bytes``, and exactly the ``explicit_fits`` analysis.
-    Round 4 gated this at 256 out of caution; round 5 validated
-    C_pad in {384, 512} against ``gram_soa_xla`` on the v5e
-    (tests/test_ba_soa.py::test_gram_soa_large_c), so box300-scale
-    globals (C buckets 320/384) now run the fused kernel instead of the
-    XLA fallback.  Same K <= 16 unroll cap as ``gram_fits``.
-    """
-    return num_cams <= 4 * _LANE and k_bucket <= 16
-
-
-def _gram_kernel(lh_ref, gl_ref, cam_ref, g_ref, r_ref, *,
-                 K: int, C_pad: int, bf16: bool):
-    """One point-tile step of the fused Schur-Gram accumulation.
-
-    Builds the 18 dense V panels (one (TP, C_pad) panel per (a, i) pair)
-    for this tile of points in VMEM via one-hot camera expansion, then
-    accumulates the 21 unique (C_pad, C_pad) Gram blocks and the 6 rhs
-    row blocks into the revisited outputs.  The (3P, 6C) V matrix never
-    exists in HBM.
-    """
-    pid = pl.program_id(0)
-
-    @pl.when(pid == 0)
-    def _init():
-        g_ref[:] = jnp.zeros_like(g_ref)
-        r_ref[:] = jnp.zeros_like(r_ref)
-
-    lh = lh_ref[:]  # (TP, K*18), layout k*18 + a*6 + i
-    gl = gl_ref[:]  # (TP, 3)
-    cam = cam_ref[:]  # (TP, K) int32
-    TP = lh.shape[0]
-    dtype = lh.dtype
-    iota_c = jax.lax.broadcasted_iota(jnp.int32, (TP, C_pad), 1)
-
-    V = [[jnp.zeros((TP, C_pad), dtype) for _ in range(6)]
-         for _ in range(3)]
-    for k in range(K):
-        # 2D slices throughout (1D intermediates lower poorly in Mosaic).
-        oh = (cam[:, k:k + 1] == iota_c).astype(dtype)  # (TP, C_pad)
-        for a in range(3):
-            for i in range(6):
-                col = lh[:, k * 18 + a * 6 + i:
-                         k * 18 + a * 6 + i + 1]  # (TP, 1)
-                V[a][i] += oh * col
-
-    Vg = V
-    if bf16:
-        # bf16 operands / f32 MXU accumulation (2x peak on v5e); the rhs
-        # rows below stay f32 (they are VPU reductions, not matmuls).
-        Vg = [[v.astype(jnp.bfloat16) for v in row] for row in V]
-
-    for i1 in range(6):
-        for i2 in range(i1, 6):
-            acc = jnp.zeros((C_pad, C_pad), dtype)
-            for a in range(3):
-                acc += jax.lax.dot_general(
-                    Vg[a][i1], Vg[a][i2], (((0,), (0,)), ((), ())),
-                    preferred_element_type=dtype)
-            g_ref[i1 * C_pad:(i1 + 1) * C_pad,
-                  i2 * C_pad:(i2 + 1) * C_pad] += acc
-            if i2 != i1:
-                g_ref[i2 * C_pad:(i2 + 1) * C_pad,
-                      i1 * C_pad:(i1 + 1) * C_pad] += acc.T
-
-    for i in range(6):
-        racc = jnp.zeros((1, C_pad), dtype)
-        for a in range(3):
-            racc += jnp.sum(V[a][i] * gl[:, a:a + 1], axis=0,
-                            keepdims=True)
-        r_ref[0:1, i * C_pad:(i + 1) * C_pad] += racc
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("num_cams", "precision", "interpret"))
-def gram_fused(LH: jax.Array, gL: jax.Array, obs_cam: jax.Array,
-               num_cams: int, precision: str = "f32",
-               interpret: bool = False):
-    """Fused S_corr = V^T V and rhs_corr = V^T (L^T gp), V never in HBM.
-
-    The XLA path (``build_u_matrix`` + one Gram matmul) writes the
-    (P, 3, 6C) U/V tensors to HBM (~150 MB at mapper scale) and reads
-    them back for the Gram — measured 6 ms of the 15.8 ms LM iteration on
-    v5e.  This kernel streams the (P, K, 3, 6) observation blocks once
-    (~12 MB), builds each point-tile's V panels in VMEM, and accumulates
-    the Gram on the MXU, i-major blocked: G[i1*C_pad+c1, i2*C_pad+c2].
-
-    LH: (P, K, 3, 6) = einsum("pba,pkib->pkai", chol3(Hpp_inv), Hcp_o);
-    gL: (P, 3) = L^T gp;  obs_cam: (P, K) int32.  Padding observations
-    must carry zero LH blocks (they do: the robust weight is 0 there).
-
-    Returns (S_corr (6C, 6C), rhs_corr (6C,)) in the 6c+i dense layout of
-    the caller.  Requires ``gram_fits(num_cams, K)``.
-    """
-    P, K = obs_cam.shape
-    C_pad = _round_up(max(num_cams, _LANE), _LANE)
-    dtype = LH.dtype
-    TP = 512 if C_pad <= _LANE else 128
-    P_pad = _round_up(max(P, TP), TP)
-    lh = LH.reshape(P, K * 18)
-    if P_pad > P:
-        lh = jnp.pad(lh, ((0, P_pad - P), (0, 0)))
-        gL = jnp.pad(gL, ((0, P_pad - P), (0, 0)))
-        obs_cam = jnp.pad(obs_cam, ((0, P_pad - P), (0, 0)))
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    grid = (P_pad // TP,)
-    G, R = pl.pallas_call(
-        functools.partial(_gram_kernel, K=K, C_pad=C_pad,
-                          bf16=(precision == "bf16")),
-        grid=grid,
-        # The 18 V panels + unrolled one-hot temporaries exceed the 16 MB
-        # default scoped-VMEM cap at K=8/TP=512; v5e has 128 MiB physical
-        # VMEM, so raise the per-kernel limit instead of shrinking tiles.
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        in_specs=[
-            pl.BlockSpec((TP, K * 18), lambda t: (t, 0)),
-            pl.BlockSpec((TP, 3), lambda t: (t, 0)),
-            pl.BlockSpec((TP, K), lambda t: (t, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((6 * C_pad, 6 * C_pad), lambda t: (0, 0)),
-            pl.BlockSpec((8, 6 * C_pad), lambda t: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((6 * C_pad, 6 * C_pad), dtype),
-            jax.ShapeDtypeStruct((8, 6 * C_pad), dtype),
-        ],
-        interpret=interpret,
-    )(lh, gL, obs_cam)
-
-    n = 6 * num_cams
-    # i-major blocks -> the caller's 6c+i layout.
-    G4 = G.reshape(6, C_pad, 6, C_pad)[:, :num_cams, :, :num_cams]
-    S_corr = jnp.transpose(G4, (1, 0, 3, 2)).reshape(n, n)
-    rhs_corr = R[0].reshape(6, C_pad)[:, :num_cams].T.reshape(n)
-    return S_corr, rhs_corr
-
-
-def _gram_soa_kernel(lh_ref, gl_ref, cam_ref, g_ref, r_ref, *,
-                     K: int, C_pad: int, bf16: bool):
-    """One point-tile step of the SoA fused Schur-Gram accumulation.
-
-    Same math as ``_gram_kernel`` but with the component layout of
-    ``optim/ba_soa.py``: points ride the LANE axis (no (P, K*18) repack
-    in HBM), V panels are (C_pad, TP), the Gram contracts the lane axis,
-    and only the 21 upper (i1 <= i2) C_pad x C_pad blocks are written —
-    the caller mirrors them (transposes inside Mosaic kernels are slow).
-    """
-    pid = pl.program_id(0)
-
-    @pl.when(pid == 0)
-    def _init():
-        g_ref[:] = jnp.zeros_like(g_ref)
-        r_ref[:] = jnp.zeros_like(r_ref)
-
-    lh = lh_ref[:]  # (R_pad, TP), rows (a*6+i)*K + k
-    gl = gl_ref[:]  # (8, TP), rows 0..2 used
-    cam = cam_ref[:]  # (K_pad, TP) int32
-    TP = lh.shape[1]
-    dtype = lh.dtype
-    iota_c = jax.lax.broadcasted_iota(jnp.int32, (C_pad, TP), 0)
-
-    V = [[jnp.zeros((C_pad, TP), dtype) for _ in range(6)]
-         for _ in range(3)]
-    for k in range(K):
-        oh = (cam[k:k + 1, :] == iota_c).astype(dtype)  # (C_pad, TP)
-        for a in range(3):
-            for i in range(6):
-                r0 = (a * 6 + i) * K + k
-                V[a][i] += oh * lh[r0:r0 + 1, :]
-
-    Vg = V
-    if bf16:
-        Vg = [[v.astype(jnp.bfloat16) for v in row] for row in V]
-
-    for i1 in range(6):
-        for i2 in range(i1, 6):
-            acc = jnp.zeros((C_pad, C_pad), dtype)
-            for a in range(3):
-                acc += jax.lax.dot_general(
-                    Vg[a][i1], Vg[a][i2], (((1,), (1,)), ((), ())),
-                    preferred_element_type=dtype)
-            g_ref[i1 * C_pad:(i1 + 1) * C_pad,
-                  i2 * C_pad:(i2 + 1) * C_pad] += acc
-
-    for i in range(6):
-        racc = jnp.zeros((1, C_pad), dtype)
-        for a in range(3):
-            racc += jax.lax.dot_general(
-                gl[a:a + 1, :], V[a][i], (((1,), (1,)), ((), ())),
-                preferred_element_type=dtype)
-        r_ref[0:1, i * C_pad:(i + 1) * C_pad] += racc
-
-
-def _soa_blocks_to_flat(G4: jax.Array, num_cams: int) -> jax.Array:
-    """(6, C, 6, C) i-major blocks -> (6C, 6C) in the 6c+i layout."""
-    n = 6 * num_cams
-    return jnp.transpose(G4, (1, 0, 3, 2)).reshape(n, n)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("num_cams", "precision", "interpret"))
-def gram_soa(lh_stack: jax.Array, gL: jax.Array, cam_kp: jax.Array,
-             num_cams: int, precision: str = "f32",
-             interpret: bool = False):
-    """Fused S_corr/rhs_corr from SoA component arrays; V never in HBM.
-
-    lh_stack: (18*K, P) with row order (a*6+i)*K + k, the natural stack
-    of the 18 per-(a, i) (K, P) component arrays of ``ba_soa``;
+    lh_stack: (18*K, P) with row order (a*6+i)*K + k, the stack of the 18
+    per-(a, i) (K, P) component arrays of ``ba_soa`` (L^T Hcp);
     gL: (3, P) = L^T gp components;  cam_kp: (K, P) int32.
     Padding observations must carry zero lh rows (robust weight 0).
 
+    V (3P, 6C) is built by a one-hot contraction that selects exactly
+    (HIGHEST), and the L^T gp column rides V as one extra column so a
+    single Gram matmul gives both outputs.  ``precision="f32"`` runs the
+    Gram in full f32; ``"bf16"`` casts V to bf16 with f32 accumulation.
+
     Returns (S_corr (6C, 6C), rhs_corr (6C,)) in the 6c+i layout.
     """
-    RK, P = lh_stack.shape
-    K = RK // 18
-    C_pad = _round_up(max(num_cams, _LANE), _LANE)
-    dtype = lh_stack.dtype
-    TP = 512 if C_pad <= _LANE else 128
-    P_pad = _round_up(max(P, TP), TP)
-    R_pad = _round_up(RK, 8)
-    K_pad = _round_up(K, 8)
-    lh = jnp.pad(lh_stack, ((0, R_pad - RK), (0, P_pad - P)))
-    gl = jnp.pad(gL, ((0, 8 - gL.shape[0]), (0, P_pad - P)))
-    # Padding points get camera id 0 with zero lh rows — they contribute
-    # exact zeros to V and the Gram.
-    cam = jnp.pad(cam_kp, ((0, K_pad - K), (0, P_pad - P)))
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    grid = (P_pad // TP,)
-    G, R = pl.pallas_call(
-        functools.partial(_gram_soa_kernel, K=K, C_pad=C_pad,
-                          bf16=(precision == "bf16")),
-        grid=grid,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        in_specs=[
-            pl.BlockSpec((R_pad, TP), lambda t: (0, t)),
-            pl.BlockSpec((8, TP), lambda t: (0, t)),
-            pl.BlockSpec((K_pad, TP), lambda t: (0, t)),
-        ],
-        out_specs=[
-            pl.BlockSpec((6 * C_pad, 6 * C_pad), lambda t: (0, 0)),
-            pl.BlockSpec((8, 6 * C_pad), lambda t: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((6 * C_pad, 6 * C_pad), dtype),
-            jax.ShapeDtypeStruct((8, 6 * C_pad), dtype),
-        ],
-        interpret=interpret,
-    )(lh, gl, cam)
-
-    C = num_cams
-    G4 = G.reshape(6, C_pad, 6, C_pad)[:, :C, :, :C]
-    A = _soa_blocks_to_flat(G4, C)  # upper (i1 <= i2) blocks, zeros below
-    eye_i = jnp.eye(6, dtype=dtype)
-    Ad = _soa_blocks_to_flat(G4 * eye_i[:, None, :, None], C)
-    S_corr = A + A.T - Ad  # diagonal-in-i blocks are symmetric Grams
-    rhs_corr = R[0].reshape(6, C_pad)[:, :C].T.reshape(6 * C)
-    return S_corr, rhs_corr
-
-
-def _gram_soa_blocked_kernel(lh_ref, gl_ref, cam_ref, g_ref, *,
-                             K: int, CB: int, n_cb: int, bf16: bool):
-    """One (camera-block-pair, point-tile) step of the blocked SoA Gram.
-
-    The >512-camera regime (VERDICT r4 missing #2): the monolithic
-    ``_gram_soa_kernel`` holds the full (6*C_pad, 6*C_pad) accumulator in
-    VMEM (151 MB at C_pad=1024 — over budget), so here the Gram is tiled
-    over ordered camera-block pairs (cb1, cb2) of CB cameras each; grid
-    (n_cb*n_cb, P_tiles) with the point axis innermost so each output
-    block accumulates across consecutive steps.  V panels for both blocks
-    are rebuilt per pair (VPU masked adds — cheap next to the 108 MXU
-    dots), the full square is computed (no upper-triangle mirroring:
-    cross-block transposes inside Mosaic are slower than the extra dots).
-    Output layout (6, 6, C_pad, C_pad) = [i1, i2, c1, c2].
-    """
-    pp = pl.program_id(0)
-    cb1 = pp // n_cb
-    cb2 = pp % n_cb
-
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        g_ref[:] = jnp.zeros_like(g_ref)
-
-    lh = lh_ref[:]  # (R_pad, TP), rows (a*6+i)*K + k
-    cam = cam_ref[:]  # (K_pad, TP) int32
-    TP = lh.shape[1]
-    dtype = lh.dtype
-    iota_c = jax.lax.broadcasted_iota(jnp.int32, (CB, TP), 0)
-
-    def build_v(cb):
-        lo = cb * CB
-        V = [[jnp.zeros((CB, TP), dtype) for _ in range(6)]
-             for _ in range(3)]
-        for k in range(K):
-            oh = ((cam[k:k + 1, :] - lo) == iota_c).astype(dtype)
-            for a in range(3):
-                for i in range(6):
-                    r0 = (a * 6 + i) * K + k
-                    V[a][i] += oh * lh[r0:r0 + 1, :]
-        return V
-
-    V1 = build_v(cb1)
-    V2 = build_v(cb2)
-    if bf16:
-        V1 = [[v.astype(jnp.bfloat16) for v in row] for row in V1]
-        V2 = [[v.astype(jnp.bfloat16) for v in row] for row in V2]
-
-    for i1 in range(6):
-        for i2 in range(6):
-            acc = jnp.zeros((CB, CB), dtype)
-            for a in range(3):
-                acc += jax.lax.dot_general(
-                    V1[a][i1], V2[a][i2], (((1,), (1,)), ((), ())),
-                    preferred_element_type=dtype)
-            g_ref[i1, i2, :, :] += acc
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("num_cams", "precision", "interpret"))
-def gram_soa_blocked(lh_stack: jax.Array, gL: jax.Array, cam_kp: jax.Array,
-                     num_cams: int, precision: str = "f32",
-                     interpret: bool = False):
-    """Blocked-pair SoA Schur Gram for 512 < C (same contract as
-    ``gram_soa``); rhs_corr comes from a chunked one-hot contraction in
-    XLA (its (K*P, C) one-hot would not fit HBM at this scale)."""
-    RK, P = lh_stack.shape
-    K = RK // 18
-    CB = 256
-    C_pad = _round_up(max(num_cams, CB), CB)
-    n_cb = C_pad // CB
-    dtype = lh_stack.dtype
-    TP = 128
-    P_pad = _round_up(max(P, TP), TP)
-    R_pad = _round_up(RK, 8)
-    K_pad = _round_up(K, 8)
-    lh = jnp.pad(lh_stack, ((0, R_pad - RK), (0, P_pad - P)))
-    gl = jnp.pad(gL, ((0, 8 - gL.shape[0]), (0, P_pad - P)))
-    # Padding points carry camera id -1: they match no block row.
-    cam = jnp.pad(cam_kp, ((0, K_pad - K), (0, P_pad - P)),
-                  constant_values=-1)
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    grid = (n_cb * n_cb, P_pad // TP)
-    G = pl.pallas_call(
-        functools.partial(_gram_soa_blocked_kernel, K=K, CB=CB, n_cb=n_cb,
-                          bf16=(precision == "bf16")),
-        grid=grid,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        in_specs=[
-            pl.BlockSpec((R_pad, TP), lambda pp, t: (0, t)),
-            pl.BlockSpec((8, TP), lambda pp, t: (0, t)),
-            pl.BlockSpec((K_pad, TP), lambda pp, t: (0, t)),
-        ],
-        out_specs=pl.BlockSpec(
-            (6, 6, CB, CB),
-            lambda pp, t, n_cb=n_cb: (0, 0, pp // n_cb, pp % n_cb)),
-        out_shape=jax.ShapeDtypeStruct((6, 6, C_pad, C_pad), dtype),
-        interpret=interpret,
-    )(lh, gl, cam)
-
-    C = num_cams
-    n = 6 * C
-    # [i1, i2, c1, c2] -> 6c+i layout; full square was computed, so only
-    # an average with the transpose to kill f32 accumulation-order skew.
-    S_corr = jnp.transpose(G[:, :, :C, :C], (2, 0, 3, 1)).reshape(n, n)
-    S_corr = 0.5 * (S_corr + S_corr.T)
-
-    # rhs_corr[c*6+i] = sum_{a,k,p} [cam==c] lh[(a6+i)K+k, p] gl[a, p]:
-    # fold a into m (6, K*P), then contract camera chunks against
-    # transient one-hots (never more than (CH, C) resident).
-    lh4 = lh_stack.reshape(3, 6, K, P)
-    m = jnp.einsum("aikp,ap->ikp", lh4, gL).reshape(6, K * P)
-    oc = cam_kp.reshape(-1)
-    CH = 1 << 15
-    KP_pad = _round_up(K * P, CH)
-    m = jnp.pad(m, ((0, 0), (0, KP_pad - K * P)))
-    oc = jnp.pad(oc, (0, KP_pad - K * P), constant_values=-1)
-
-    def chunk(carry, xs):
-        m_c, oc_c = xs
-        oh = jax.nn.one_hot(oc_c, C, dtype=dtype)  # (CH, C), transient
-        return carry + jax.lax.dot_general(
-            m_c, oh, (((1,), (0,)), ((), ())),
-            preferred_element_type=dtype), None
-
-    rhs6, _ = jax.lax.scan(
-        chunk, jnp.zeros((6, C), dtype),
-        (m.reshape(6, -1, CH).transpose(1, 0, 2),
-         oc.reshape(-1, CH)))
-    rhs_corr = rhs6.T.reshape(n)
-    return S_corr, rhs_corr
-
-
-def gram_soa_xla(lh_stack: jax.Array, gL: jax.Array, cam_kp: jax.Array,
-                 num_cams: int, precision: str = "f32"):
-    """XLA fallback for ``gram_soa`` (CPU tests / oversize shapes)."""
     RK, P = lh_stack.shape
     K = RK // 18
     n = 6 * num_cams
@@ -559,13 +93,32 @@ def gram_soa_xla(lh_stack: jax.Array, gL: jax.Array, cam_kp: jax.Array,
     lh4 = lh_stack.reshape(3, 6, K, P)
     onehot = jax.nn.one_hot(cam_kp.T, num_cams, dtype=dtype)  # (P, K, C)
     # V[p, a, c*6+i] = sum_k onehot[p, k, c] * lh4[a, i, k, p]
-    V = jnp.einsum("pkc,aikp->paci", onehot, lh4).reshape(3 * P, n)
+    V = jnp.einsum("pkc,aikp->paci", onehot, lh4,
+                   precision=HIGHEST).reshape(3 * P, n)
     Vx = jnp.concatenate([V, gL.T.reshape(-1, 1)], axis=1)
-    if precision == "bf16":
-        Vx = Vx.astype(jnp.bfloat16)
-    G = jax.lax.dot_general(
-        Vx, Vx, (((0,), (0,)), ((), ())), preferred_element_type=dtype)
+    G = gram(Vx, precision)
     return G[:n, :n], G[:n, n]
+
+
+def gram(Vx: jax.Array, precision: str = "f32") -> jax.Array:
+    """Vx^T Vx with f32 accumulation at the requested operand precision.
+
+    "f32" is full f32 (``Precision.HIGHEST``: no TF32 rounding); "bf16"
+    rounds the operands to bfloat16.  The damped LM accepts or rejects on
+    the exact f32 cost, so a ~3 significant-digit S only perturbs the
+    step direction (tests/test_schur_explicit.py measures the trade-off).
+    """
+    dtype = Vx.dtype
+    if precision == "bf16":
+        Vx, prec = Vx.astype(jnp.bfloat16), None
+    elif precision == "f32":
+        prec = HIGHEST
+    else:
+        raise ValueError(f"unknown schur_precision {precision!r}")
+    return jax.lax.dot_general(
+        Vx, Vx, (((0,), (0,)), ((), ())), precision=prec,
+        preferred_element_type=dtype)
+
 
 
 def build_u_matrix(Hcp_o: jax.Array, obs_cam: jax.Array,
@@ -582,7 +135,7 @@ def build_u_matrix(Hcp_o: jax.Array, obs_cam: jax.Array,
     # (P, K, 18) x (P, K, C) -> (P, 18, C); 18 = (i, a) with i major.
     blocks = Hcp_o.reshape(P, K, 18)
     u = jax.lax.dot_general(
-        blocks, onehot, (((1,), (1,)), ((0,), (0,))),
+        blocks, onehot, (((1,), (1,)), ((0,), (0,))), precision=HIGHEST,
         preferred_element_type=dtype)  # (P, 18, C)
     u = u.reshape(P, 6, 3, num_cams)
     u = jnp.transpose(u, (0, 2, 3, 1))  # (P, 3, C, 6)
@@ -594,8 +147,8 @@ def embed_block_diag(blocks: jax.Array, n_pad: int,
     """(C, 6, 6) diagonal blocks -> dense (n_pad, n_pad), identity padding.
 
     Scatter-free: the embedding is an outer product with I_C (broadcast
-    multiply) and the padding diagonal a broadcast compare — scatters
-    (``.at[].set``) are latency-bound on TPU.
+    multiply) and the padding diagonal a broadcast compare, both one
+    elementwise fusion.
     """
     C = blocks.shape[0]
     n = 6 * C
@@ -618,33 +171,20 @@ def diag_blocks(S: jax.Array, num_cams: int) -> jax.Array:
 
 
 def padded_dim(num_cams: int) -> int:
-    return _round_up(6 * num_cams, _LANE)
-
-
-def gram_soa_blocked_fits(num_cams: int, k_bucket: int) -> bool:
-    """True when the blocked-pair SoA Gram supports the shape.
-
-    Per grid step the residents are one (6, 6, 256, 256) f32 output block
-    (9.4 MB) + 2x18 (256, 128) V panels (4.7 MB) — independent of C, so
-    the kernel itself scales to any camera count.  The practical ceiling
-    is the rest of the explicit-Schur solve: the dense (6C, 6C) S and its
-    PCG temporaries in HBM, ~576 MB a copy at C=2048.  C<=1024 covers the
-    reference's SPARSE_SCHUR regime (<=1000 images,
-    ``/root/reference/src/optim/bundle_adjustment.cc:281-286``); beyond
-    it the implicit matrix-free path is the right asymptote anyway.
-    """
-    return num_cams <= 1024 and k_bucket <= 16
+    return _round_up(6 * num_cams, _ALIGN)
 
 
 def explicit_fits(num_cams: int, max_dim: int = 6144) -> bool:
     """True when the explicit-Schur path supports the camera count.
 
-    C <= 512 (padded_dim 3072) runs the monolithic ``_gram_soa_kernel``
-    (37.8 MB VMEM Gram accumulator at the ceiling); 512 < C <= 1024 runs
-    the round-5 blocked-pair kernel ``gram_soa_blocked`` whose VMEM use
-    is C-independent (see ``gram_soa_blocked_fits``) — together covering
-    the reference's DENSE_SCHUR + SPARSE_SCHUR regimes.  Beyond 1024
-    ``_run_ba`` falls back to the implicit matrix-free solver
-    (ITERATIVE_SCHUR analogue).
+    C <= 1024 covers the reference's DENSE_SCHUR + SPARSE_SCHUR regimes;
+    beyond it ``_run_ba`` falls back to the implicit matrix-free solver
+    (ITERATIVE_SCHUR analogue).  The ceiling is set by the XLA path's own
+    device-memory footprint, which grows as P * C: the V matrix (3P, 6C)
+    f32 is 72 P C bytes and its one-hot builder (P, K, C) f32 4 P K C
+    bytes, beside 2 (6C)^2 f32 for S and its preconditioner.  At C=1024,
+    P=65,536 and K=16 that is about 4.8 + 4.3 + 0.3 GB, inside one 80 GB
+    card with room for the rest of the LM state.  Deriving the ceiling
+    from the device's measured free memory is future work (ROADMAP B3).
     """
     return padded_dim(num_cams) <= max_dim

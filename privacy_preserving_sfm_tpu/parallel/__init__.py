@@ -2,12 +2,12 @@
 
 The reference is single-process (``src/util/threading.h`` thread pools; no
 MPI/NCCL anywhere — SURVEY.md §2.3).  This package *creates* the
-distributed capability the TPU build needs (BASELINE.json north star):
+distributed capability the multi-GPU build needs (BASELINE.json north star):
 
   * matching sharded over image pairs (pure map over a mesh axis),
   * distributed BA: tracks/points partitioned across devices so point
     marginalization is local, the reduced camera system is ``psum``-reduced
-    over ICI, and the (small, replicated) camera CG solve runs everywhere —
+    over NVLink, and the (small, replicated) camera CG solve runs everywhere —
     replacing Ceres' shared-memory SPARSE_SCHUR with XLA collectives.
 """
 

@@ -1,6 +1,6 @@
 """Distributed implicit-Schur bundle adjustment over a device mesh.
 
-Partitioning strategy (the "TPU-native SPARSE_SCHUR"):
+Partitioning strategy (a multi-device SPARSE_SCHUR):
 
   * **points + their observations are sharded** over the mesh axis with
     track-contiguous assignment: every observation of a point lives on the
@@ -8,12 +8,12 @@ Partitioning strategy (the "TPU-native SPARSE_SCHUR"):
     entirely local;
   * **cameras are replicated**: every device computes its partial camera
     gradient / Schur matvec from its observation shard, and one ``psum``
-    per CG step reduces the camera-space vectors over ICI;
+    per CG step reduces the camera-space vectors over NVLink (NCCL);
   * the (small) preconditioned CG on the reduced camera system then runs
     identically on all devices — no further communication.
 
 Per LM iteration the only collectives are psums of (C, 6)-shaped camera
-vectors and scalars — O(C) bytes over ICI, independent of the number of
+vectors and scalars — O(C) bytes over the interconnect, independent of the number of
 points/observations, which is what makes images-registered/s scale with
 devices.
 
@@ -166,7 +166,7 @@ def bundle_adjust_sharded(problem: ba_mod.BAProblem, mesh: Mesh,
             Hcp_o = jnp.einsum("ori,orj,o->oij", Jc, Jp, w)
             gc_o = jnp.einsum("ori,or,o->oi", Jc, r, w)
             gp_o = jnp.einsum("ori,or,o->oi", Jp, r, w)
-            # Camera blocks: psum over shards (the ICI reduction).
+            # Camera blocks: psum over shards (the cross-device reduction).
             Hcc = jax.lax.psum(jax.ops.segment_sum(Hcc_o, obs_cam, C), axis)
             gc = jax.lax.psum(jax.ops.segment_sum(gc_o, obs_cam, C), axis)
             # Point blocks stay local.

@@ -1,10 +1,10 @@
 """Multi-host (multi-process) runtime for the distributed pipeline.
 
-The reference is strictly single-process (SURVEY.md §2.3); the TPU-native
+The reference is strictly single-process (SURVEY.md §2.3); the accelerator
 design scales across hosts with ``jax.distributed``: every process owns a
 slice of the global device mesh, point/observation shards live on local
-devices, and the per-CG-step camera psums ride ICI (DCN only between pod
-slices).  This module provides:
+devices, and the per-CG-step camera psums ride NVLink within a host (the
+network only between hosts).  This module provides:
 
   * ``initialize_from_env()`` — one-call ``jax.distributed.initialize``
     driven by environment variables (coordinator/world-size/rank), with

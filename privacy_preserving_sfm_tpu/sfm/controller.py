@@ -262,38 +262,6 @@ class IncrementalMapperController:
             if len(track) >= 2:
                 rec.add_point3d(pt.xyz, track)
 
-    def _maybe_trim_device_caches(self, rec: Reconstruction):
-        """Drop compiled-executable references every N registrations.
-
-        A long mapper run crosses many padding buckets (init/pose/
-        triangulation/BA shapes); on an accelerator every live executable
-        holds HBM program+scratch space, and at box300 scale the round-5
-        run exhausted the v5e's 16 GB at ~221 registrations
-        (RESOURCE_EXHAUSTED in a triangulation pool after 1.8 h).  Small
-        buckets visited early are dead weight later, so drop everything
-        periodically: jitted callables retrace transparently and the
-        persistent compile cache turns the recompiles into loads.  The
-        CPU test suite needed the identical medicine for LLVM JIT code
-        memory (tests/conftest.py, reports/sift_segv_r5.md).
-        """
-        import jax
-
-        if jax.default_backend() == "cpu":
-            return
-        every = int(os.environ.get("PPSFM_TRIM_CACHES_EVERY", "75"))
-        if every <= 0:
-            return
-        n = rec.num_registered()
-        prev = getattr(self, "_trim_prev_num", 0)
-        if n >= prev + every:
-            self._trim_prev_num = n
-            import gc
-
-            jax.clear_caches()
-            gc.collect()
-            self._log(f"  => Cleared device executable caches at {n} "
-                      "registrations (HBM program-space trim)")
-
     def _maybe_snapshot(self, rec: Reconstruction):
         """Timestamped model snapshots every snapshot_images_freq
         registrations (controllers/incremental_mapper.cc:126-140)."""
@@ -378,7 +346,6 @@ class IncrementalMapperController:
                             self.iterative_local_refinement(mapper,
                                                             next_image_id)
                         self._maybe_snapshot(rec)
-                        self._maybe_trim_device_caches(rec)
                         if (rec.num_registered() >=
                                 self.options.ba_global_images_ratio
                                 * ba_prev_num_reg

@@ -4,11 +4,11 @@ Upstream COLMAP ships a HierarchicalMapper (scene clustering -> SfM per
 cluster -> model merging); the privacy-preserving fork removed it and
 reconstructs strictly sequentially
 (``/root/reference/src/controllers/incremental_mapper.cc:382-591``), so its
-images-registered/s is bounded by one registration at a time.  A TPU
-deployment scales out differently: partition the collection into blocks
-with shared anchor images, reconstruct every block *in parallel* (one
-block per process today; one block per host under ``jax.distributed``),
-then chain-merge:
+images-registered/s is bounded by one registration at a time.  An
+accelerator deployment scales out differently: partition the collection
+into blocks with shared anchor images, reconstruct every block *in
+parallel* (one block per worker process, each worker on a GPU of its
+own), then chain-merge:
 
   1. ``partition_sequential``: contiguous blocks with ``overlap`` shared
      images (sequential capture order — the reference's own sequential
@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from privacy_preserving_sfm_tpu.utils import gpu_workers
 from privacy_preserving_sfm_tpu.models.database import Database
 from privacy_preserving_sfm_tpu.models.database_cache import DatabaseCache
 from privacy_preserving_sfm_tpu.models.reconstruction import Reconstruction
@@ -245,8 +246,16 @@ def hierarchical_map(database_path: str,
     if options.num_workers > 1:
         import multiprocessing as mp
 
+        # One card per worker, pinned before the worker imports JAX; this
+        # process touches no device until the pool has closed.
+        cards = gpu_workers.assign_gpus(options.num_workers, platform)
         ctx = mp.get_context("spawn")
-        with ctx.Pool(options.num_workers) as pool:
+        card_queue = ctx.Queue()
+        for card in cards:
+            card_queue.put(card)
+        with ctx.Pool(options.num_workers,
+                      initializer=gpu_workers.pin_worker_gpu,
+                      initargs=(card_queue,)) as pool:
             snaps = pool.map(_block_worker, jobs)
     else:
         snaps = [_block_worker(j) for j in jobs]

@@ -163,7 +163,7 @@ def subset_prescreen(res_subset: jax.Array, threshold,
     random residual SUBSET, return the indices of the ``keep`` best.
 
     The reference's SPRT (``sprt.h:45-80``) aborts per-hypothesis residual
-    loops early via a likelihood-ratio test; on TPU the sequential test
+    loops early via a likelihood-ratio test; on the device the sequential test
     becomes a two-stage batch: cheap subset scoring over all B hypotheses,
     full scoring only for the shortlisted ``keep``.
 

@@ -16,7 +16,7 @@ Twin of ``TriangulationEstimator`` / ``EstimateTriangulation``
   * LO step: refit DLT on the inliers of the best sample (LORANSAC's
     single local-optimization refit).
 
-TPU-first: all combinations are evaluated as one batch; invalid/padded
+Accelerator-first: all combinations are evaluated as one batch; invalid/padded
 observations and invalid combinations are masked, not branched.
 """
 

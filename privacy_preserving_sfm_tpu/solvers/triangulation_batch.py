@@ -1,11 +1,11 @@
 """SoA batched robust line triangulation (many tracks per device call).
 
 Same LORANSAC semantics as ``solvers/triangulation.estimate_triangulation``
-(reference ``src/estimators/triangulation.{h,cc}``), re-laid-out for the TPU
-memory system.  The naive formulation vmapped over tracks materializes
-tensors like ``(tracks, combos, 3, 4)`` whose trailing (3, 4) dims pad to
-one (8, 128) tile each — a measured 40x HBM blowup that OOMed compilation at
-``(4096, 2024, 3, 4)`` (39.8 GB padded for 982 MB of payload).  Here every
+(reference ``src/estimators/triangulation.{h,cc}``), re-laid-out for accelerator
+memory.  The naive formulation vmapped over tracks materializes
+tensors like ``(tracks, combos, 3, 4)`` whose tiny trailing (3, 4) dims make poor device-memory layouts (tiled
+layouts pad them many times over, at ``(4096, 2024, 3, 4)`` tens of GB for
+982 MB of payload).  Here every
 large intermediate keeps the two BIG axes (tracks, combos) or
 (tracks, observations, combos) in the tiled minor positions and splits
 3-/4-vectors into separate component arrays (structure of arrays), so

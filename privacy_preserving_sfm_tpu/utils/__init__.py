@@ -1,8 +1,7 @@
-"""Runtime utilities: configuration, timing, logging.
+"""Runtime utilities: configuration, timing, logging, device setup.
 
 Counterpart of ``src/util/`` minus what JAX/Python already provide
-(threading pools, PRNG wrappers, OpenGL plumbing).
+(threading pools, PRNG wrappers, OpenGL plumbing).  Submodules are
+imported on their own: ``png``, ``jax_setup`` and ``gpu_workers`` must
+stay importable without JAX.
 """
-
-from privacy_preserving_sfm_tpu.utils.config import AllOptions  # noqa: F401
-from privacy_preserving_sfm_tpu.utils.timer import Timer  # noqa: F401

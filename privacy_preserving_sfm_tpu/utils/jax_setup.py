@@ -2,13 +2,35 @@
 
 The incremental pipeline compiles a bounded family of bucketed kernels
 (init, P6L, triangulation, BA); with XLA's persistent compilation cache
-enabled those compiles happen once per machine instead of once per
-process.  Called by the CLI entry point and the test harness.
+enabled those compiles happen once per checkout instead of once per
+process.  Called by the CLI entry point, the benchmark and the test
+harness.
 """
 
 from __future__ import annotations
 
 import os
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_CACHE_DIR = os.path.join(_REPO_ROOT, ".jax_cache")
+
+
+def accelerator() -> str:
+    """The one device decision of the program: ``"gpu"`` or ``"cpu"``.
+
+    Read from ``jax.devices()[0].platform``.  Every solver and kernel
+    choice that depends on the device goes through this function; any
+    other platform is an error rather than a silent default.
+    """
+    import jax
+
+    platform = jax.devices()[0].platform
+    if platform not in ("gpu", "cpu"):
+        raise RuntimeError(
+            f"unsupported JAX platform {platform!r}: this program runs on "
+            "an NVIDIA GPU ('gpu') or on the CPU ('cpu')")
+    return platform
 
 
 def _machine_tag() -> str:
@@ -16,12 +38,10 @@ def _machine_tag() -> str:
 
     XLA:CPU persists AOT executables specialized to the compile host's
     ISA features; loading them on a machine with a different feature set
-    SIGILLs/segfaults (observed: a round-2 cache entry crashed the round-3
-    test suite after the session moved hosts).  Scoping the cache dir by
-    this tag makes stale cross-machine entries unreachable.  The
-    ``--xla_cpu_max_isa`` cap (the round-5 AVX512-miscompile mitigation,
-    reports/sift_segv_r5.md) changes the generated code too, so it joins
-    the fingerprint.
+    crashes.  Scoping the CPU cache directory by this tag makes stale
+    cross-machine entries unreachable.  The ``--xla_cpu_max_isa`` cap
+    (the AVX512 miscompile mitigation, reports/sift_segv_r5.md) changes
+    the generated code too, so it joins the fingerprint.
     """
     import hashlib
 
@@ -43,28 +63,44 @@ def _machine_tag() -> str:
     return platform.machine() + isa
 
 
-def enable_persistent_cache(path: str | None = None) -> str:
-    """Enable XLA's persistent compile cache, scoped so stale entries are
-    unreachable rather than deserialized-and-crashed.
+def cache_dir() -> str:
+    """Where the persistent compile cache lives.
 
-    Scope key = CPU-ISA fingerprint + jaxlib version + x64 flag: round 4
-    observed a segfault inside ``jax/_src/compilation_cache.py`` while
-    deserializing an entry written under a different configuration; the
-    cache key jax computes does not cover every axis that matters on this
-    backend, so we partition the directory instead.  Thresholds sit at
-    jax's defaults (min_compile_time 1.0 s) instead of round 3's
-    aggressive 0.2 s/0 bytes — tiny entries cost more in (risky) reads
-    than they save in compiles.
+    ``$JAX_COMPILATION_CACHE_DIR`` when it is set; otherwise the fixed,
+    git-ignored ``<checkout>/.jax_cache``.  Processes pinned to the CPU
+    backend (``JAX_PLATFORMS=cpu``) use a subdirectory keyed by the
+    host's CPU features, jaxlib version and x64 flag.  Decided from the
+    configuration alone: this must not initialize a device, because a
+    parent that opens the GPU before spawning per-card workers would
+    hold three quarters of card 0's memory.
     """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
     import jaxlib
 
-    x64 = "x64" if jax.config.jax_enable_x64 else "x32"
-    tag = f"{_machine_tag()}_{jaxlib.__version__}_{x64}"
-    path = path or os.environ.get(
-        "PPSFM_JAX_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", f"ppsfm_jax_{tag}"))
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if (jax.config.jax_platforms or "").strip() == "cpu":
+        x64 = "x64" if jax.config.jax_enable_x64 else "x32"
+        return os.path.join(
+            DEFAULT_CACHE_DIR,
+            f"cpu_{_machine_tag()}_{jaxlib.__version__}_{x64}")
+    return DEFAULT_CACHE_DIR
+
+
+def enable_persistent_cache() -> str:
+    """Enable XLA's persistent compile cache at ``cache_dir()``.
+
+    Where ``$JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    no other directory is configured here.  Thresholds sit at JAX's
+    default minimum compile time (1.0 s): tiny entries cost more in reads
+    than they save in compiles.
+    """
+    import jax
+
+    path = cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     return path

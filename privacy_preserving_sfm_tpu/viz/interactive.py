@@ -3,7 +3,7 @@
 The reference's interactive surface is a Qt5/OpenGL desktop viewer
 (``/root/reference/src/ui/model_viewer_widget.cc``: orbit/zoom navigation,
 point cloud colored by the ``colormaps.cc`` quantities, camera frusta,
-point-size / frustum-size controls).  A TPU deployment is headless, so
+point-size / frustum-size controls).  A GPU server deployment is headless, so
 the equivalent here is an **exported interactive artifact**: one HTML
 file with the model embedded (base64 Float32Array) and a dependency-free
 canvas renderer — orbit (drag), pan (right-drag / shift-drag), zoom

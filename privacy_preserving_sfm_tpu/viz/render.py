@@ -1,8 +1,8 @@
-"""Headless sparse-model renderer: the TPU-era replacement for the Qt GUI.
+"""Headless sparse-model renderer: the headless replacement for the Qt GUI.
 
 The reference ships a Qt5/OpenGL model viewer (``/root/reference/src/ui/
 model_viewer_widget.cc``, point/line painters + colormaps in
-``/root/reference/src/ui/colormaps.cc``).  A production TPU deployment is
+``/root/reference/src/ui/colormaps.cc``).  A production GPU server is
 headless, so the equivalent surface here is offscreen rendering: the
 reconstruction (3D points colored by the same quantities the reference's
 colormaps expose — track length, reprojection error, depth — plus camera

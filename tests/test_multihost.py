@@ -6,7 +6,7 @@ point-sharded / camera-psum bundle adjustment; each worker asserts the
 result matches the single-process solver (tests/multihost_worker.py).
 
 This is the framework's multi-host path (SURVEY.md §5.8 / BASELINE
-config 5) exercised without TPU pod hardware.
+config 5) exercised without multi-host hardware.
 """
 
 import os

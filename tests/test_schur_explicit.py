@@ -32,18 +32,6 @@ def test_pcg_xla_solves_spd():
                                rtol=0, atol=1e-8)
 
 
-def test_pcg_fused_interpret_matches_xla():
-    rng = np.random.default_rng(1)
-    n = 256  # multiple of 128 as the kernel requires
-    S = _random_spd(n, rng, jnp.float32)
-    rhs = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    Minv = jnp.diag(1.0 / jnp.diag(S)).astype(jnp.float32)
-    x_ref = schur_pcg.pcg_xla(S, Minv, rhs, iters=25)
-    x_pal = schur_pcg.pcg_fused(S, Minv, rhs, iters=25, interpret=True)
-    np.testing.assert_allclose(np.asarray(x_pal), np.asarray(x_ref),
-                               rtol=1e-4, atol=1e-5)
-
-
 def test_embed_and_diag_blocks_roundtrip():
     rng = np.random.default_rng(2)
     blocks = jnp.asarray(rng.standard_normal((5, 6, 6)))
@@ -128,83 +116,10 @@ def test_build_u_matrix_matches_scatter():
     np.testing.assert_allclose(U, expect, atol=1e-12)
 
 
-def test_gram_fused_matches_u_matrix_path():
-    """Fused Pallas Gram (interpret mode) == U-matrix XLA materialization."""
-    rng = np.random.default_rng(6)
-    P, K, C = 700, 8, 23  # P not a tile multiple: exercises padding
-    Hcp = jnp.asarray(rng.standard_normal((P, K, 6, 3)), jnp.float32)
-    cams = jnp.asarray(rng.integers(0, C, (P, K)), jnp.int32)
-    Hpp_inv_raw = rng.standard_normal((P, 3, 3))
-    Hpp_inv = jnp.asarray(
-        Hpp_inv_raw @ Hpp_inv_raw.transpose(0, 2, 1) + 3 * np.eye(3),
-        jnp.float32)
-    gp = jnp.asarray(rng.standard_normal((P, 3)), jnp.float32)
-
-    from privacy_preserving_sfm_tpu.ops import linalg
-    n = 6 * C
-    L = linalg.chol3(Hpp_inv)
-    U = schur_pcg.build_u_matrix(Hcp, cams, C)
-    V = jnp.einsum("pba,pbn->pan", L, U).reshape(-1, n)
-    gL = jnp.einsum("pba,pb->pa", L, gp)
-    S_ref = np.asarray(V.T @ V)
-    r_ref = np.asarray(V.T @ gL.reshape(-1))
-
-    LH = jnp.einsum("pba,pkib->pkai", L, Hcp)
-    S_f, r_f = schur_pcg.gram_fused(LH, gL, cams, C, interpret=True)
-    np.testing.assert_allclose(np.asarray(S_f), S_ref, rtol=2e-5,
-                               atol=2e-3 * np.abs(S_ref).max())
-    np.testing.assert_allclose(np.asarray(r_f), r_ref, rtol=2e-5,
-                               atol=2e-3 * np.abs(r_ref).max())
-
-
-def test_gram_fused_two_camera_blocks():
-    """C in (128, 256] switches to the 128-point tile / C_pad=256 shape."""
-    rng = np.random.default_rng(8)
-    P, K, C = 300, 6, 150
-    Hcp = jnp.asarray(rng.standard_normal((P, K, 6, 3)), jnp.float32)
-    cams = jnp.asarray(rng.integers(0, C, (P, K)), jnp.int32)
-    Lr = rng.standard_normal((P, 3, 3))
-    L = jnp.asarray(np.tril(Lr) + 2 * np.eye(3), jnp.float32)
-    gp = jnp.asarray(rng.standard_normal((P, 3)), jnp.float32)
-
-    n = 6 * C
-    U = schur_pcg.build_u_matrix(Hcp, cams, C)
-    V = jnp.einsum("pba,pbn->pan", L, U).reshape(-1, n)
-    gL = jnp.einsum("pba,pb->pa", L, gp)
-    S_ref = np.asarray(V.T @ V)
-    r_ref = np.asarray(V.T @ gL.reshape(-1))
-
-    LH = jnp.einsum("pba,pkib->pkai", L, Hcp)
-    S_f, r_f = schur_pcg.gram_fused(LH, gL, cams, C, interpret=True)
-    np.testing.assert_allclose(np.asarray(S_f), S_ref, rtol=2e-5,
-                               atol=2e-3 * np.abs(S_ref).max())
-    np.testing.assert_allclose(np.asarray(r_f), r_ref, rtol=2e-5,
-                               atol=2e-3 * np.abs(r_ref).max())
-
-
-def test_explicit_fused_gram_matches_xla_gram_ba():
-    """Whole solver: gram_mode='fused' (interpreted kernel) == 'xla'."""
-    rng = np.random.default_rng(7)
-    problem = _synthetic_problem(rng)
-    problem = jax.tree.map(
-        lambda a: a.astype(jnp.float32)
-        if a.dtype == jnp.float64 else a, problem)
-    dense = ba_dense.from_flat_problem(problem)
-    kw = dict(max_iterations=10, cg_iterations=25, function_tolerance=0.0,
-              schur_mode="explicit")
-    q_x, t_x, X_x, s_x = ba_dense.bundle_adjust_dense(
-        dense, "SIMPLE_PINHOLE", ba.BAOptions(gram_mode="xla", **kw))
-    q_f, t_f, X_f, s_f = ba_dense.bundle_adjust_dense(
-        dense, "SIMPLE_PINHOLE", ba.BAOptions(gram_mode="fused", **kw))
-    assert float(s_f.final_cost) < 1e-8 * float(s_f.initial_cost)
-    np.testing.assert_allclose(np.asarray(t_f), np.asarray(t_x), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(X_f), np.asarray(X_x), atol=1e-3)
-
-
 def test_explicit_bf16_schur_converges():
     """bf16-compute/f32-accumulate S_corr still solves the scene: the LM
     accept/reject runs on the exact f32 cost, so a low-precision S only
-    perturbs step directions (evaluated quantitatively in bench.py)."""
+    perturbs step directions."""
     rng = np.random.default_rng(5)
     problem = _synthetic_problem(rng)
     # bf16 path operates on f32 tensors (the production dtype).

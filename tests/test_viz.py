@@ -3,9 +3,14 @@
 import os
 
 import numpy as np
+import pytest
 
-from test_models import make_simple_rec
-from privacy_preserving_sfm_tpu.viz import render_model, render_turntable
+pytest.importorskip("matplotlib")  # the renderer's optional dependency
+
+from test_models import make_simple_rec  # noqa: E402
+from privacy_preserving_sfm_tpu.viz import (  # noqa: E402
+    render_model, render_turntable,
+)
 
 
 def _rec_with_points():

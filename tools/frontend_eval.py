@@ -14,7 +14,7 @@ ExtractTopScaleFeatures at ``feature.cc:79-114``, and top-response) —
 VERDICT r1 item 5.
 
 Usage: python tools/frontend_eval.py DATASET_DIR [--pairs 3] [--json OUT]
-Runs on CPU by default (--tpu to use the device backend).
+Runs on CPU by default (--gpu to use the GPU).
 """
 
 from __future__ import annotations
@@ -56,13 +56,13 @@ def main():
     ap.add_argument("--max_features", type=int, default=4096)
     ap.add_argument("--descriptor_mode", default="dense",
                     choices=("dense", "gather"))
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--json", dest="json_out")
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 

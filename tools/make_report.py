@@ -1,4 +1,4 @@
-"""One-command north-star report (REPORT_rNN.json).
+"""One-command north-star report (one JSON file).
 
 Chains: synthetic dataset (rendered images + gravity + calibration) ->
 automatic_reconstructor (SIFT -> line lift -> exhaustive match -> mapper)
@@ -6,15 +6,13 @@ automatic_reconstructor (SIFT -> line lift -> exhaustive match -> mapper)
 front-end metrics (tools/frontend_eval.py) -> one JSON report covering
 BASELINE.md configs 1-4.
 
-The reference C++ cannot build in this environment (no Eigen / Ceres /
-Boost / FreeImage / glog system packages, and package installation is
-unavailable), so parity is reported against ground-truth poses, per the
-protocol of ``compare_colmap_poses.m`` — documented in the report.
+Parity is reported against ground-truth poses, per the protocol of
+``compare_colmap_poses.m`` — documented in the report.
 
 Usage:
-  python tools/make_report.py --out REPORT_r02.json \
+  python tools/make_report.py --out report.json \
       [--workspace /tmp/ws50c --dataset /tmp/synth50]  # reuse a run
-  python tools/make_report.py --fresh --platform cpu   # run everything
+  python tools/make_report.py --fresh --platform gpu   # run everything
 """
 
 from __future__ import annotations
@@ -31,11 +29,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="REPORT_r02.json")
+    ap.add_argument("--out", default="report.json")
     ap.add_argument("--dataset", default="/tmp/synth50")
     ap.add_argument("--workspace", default="/tmp/ws50c")
     ap.add_argument("--num-images", type=int, default=50)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--fresh", action="store_true",
                     help="regenerate dataset + rerun the pipeline")
     args = ap.parse_args()

@@ -10,10 +10,11 @@ correctness of the sharded kernel at every mesh size and (b) the
 measured collective volume, which is what determines real multi-chip
 scaling: per CG step the only cross-device traffic is a psum of
 (C, 6) f32 camera vectors + a handful of scalars, i.e. ~24*C bytes —
-independent of points/observations.  With v5e ICI at ~400 GB/s per
-link, a C=1000-camera psum is ~0.2 us of wire time vs ~10 ms of local
-point-elimination work per LM iteration at 1M obs/device: compute-bound
-scaling until the camera system itself saturates a chip.
+independent of points/observations.  Over NVLink (450 GB/s each way per
+H100, published) a C=1000-camera psum is well under a microsecond of
+wire time against milliseconds of local point-elimination work per LM
+iteration: compute-bound scaling until the camera system itself
+saturates a card.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

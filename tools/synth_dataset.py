@@ -3,7 +3,7 @@
 Two scene kinds:
 
 * ``plane`` — a richly-textured tilted plane rendered through per-view
-  homographies (cv2.warpPerspective).
+  homographies (inverse-mapped bilinear sampling).
 * ``box``   — a true 3D scene: several independently-textured planar
   facets at different depths/orientations, composited per pixel by
   nearest depth (analytic plane depth under the inverse homography).
@@ -26,22 +26,46 @@ lens distortion (inverse mapping computed with the framework's own
 Newton undistortion), and the sidecar declares the OPENCV model — the
 e2e pipeline must then undistort during line lifting and distort inside
 every BA/projection residual.
+
+Rendering uses numpy and scipy only (``map_coordinates`` for warps,
+``gaussian_filter`` for blur, ``zoom`` for the cubic texture resize) and
+writes PNGs through ``privacy_preserving_sfm_tpu.utils.png``; the output
+is a deterministic function of the seed.
 """
 
 import os
 import sys
 
 import numpy as np
+from scipy import ndimage
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+from privacy_preserving_sfm_tpu.ops import lie_np  # noqa: E402
+from privacy_preserving_sfm_tpu.utils import png  # noqa: E402
 
 
-def _make_texture(rng, tex_size, cv2):
-    tex = rng.uniform(0, 1, (tex_size // 8, tex_size // 8)).astype(np.float32)
-    tex = cv2.resize(tex, (tex_size, tex_size), interpolation=cv2.INTER_CUBIC)
-    tex += 0.5 * cv2.resize(
-        rng.uniform(0, 1, (tex_size // 32, tex_size // 32)).astype(np.float32),
-        (tex_size, tex_size), interpolation=cv2.INTER_CUBIC)
+def _resize_cubic(img, size):
+    """Cubic-spline upsampling of a square float image to (size, size)."""
+    return ndimage.zoom(img, size / img.shape[0], order=3,
+                        mode="nearest", grid_mode=True)
+
+
+def _make_texture(rng, tex_size):
+    tex = _resize_cubic(
+        rng.uniform(0, 1, (tex_size // 8, tex_size // 8)), tex_size)
+    tex += 0.5 * _resize_cubic(
+        rng.uniform(0, 1, (tex_size // 32, tex_size // 32)), tex_size)
     tex = (tex - tex.min()) / (tex.max() - tex.min())
     return (tex * 255).astype(np.uint8)
+
+
+def _sample_bilinear(tex, x, y):
+    """Bilinear texture lookup at float pixel coords, edge-replicated."""
+    out = ndimage.map_coordinates(tex.astype(np.float32), [y, x], order=1,
+                                  mode="nearest")
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
 
 
 # Facets of the "box" scene: (origin O, edge A, edge B) with world points
@@ -81,7 +105,7 @@ def _undistorted_pix_map(width, height, model, params):
     return np.ascontiguousarray(pu.T.reshape(3, height, width))
 
 
-def _render_box_view(K, R, t, textures, width, height, cv2, pix=None):
+def _render_box_view(K, R, t, textures, width, height, pix=None):
     """Composite the BOX_FACETS by nearest positive depth.
 
     ``pix``: optional (3, H, W) per-output-pixel homogeneous PINHOLE pixel
@@ -108,15 +132,22 @@ def _render_box_view(K, R, t, textures, width, height, cv2, pix=None):
         valid = (np.abs(u) <= 1) & (np.abs(v) <= 1) & (depth > 0.1)
         valid &= np.isfinite(u) & np.isfinite(v)
         win = valid & (depth < zbuf)
-        map_x = ((u + 1) * 0.5 * (ts - 1)).astype(np.float32)
-        map_y = ((v + 1) * 0.5 * (ts - 1)).astype(np.float32)
-        shade = cv2.remap(tex, map_x, map_y, cv2.INTER_LINEAR)
-        img[win] = shade[win]
+        img[win] = _sample_bilinear(tex, (u[win] + 1) * 0.5 * (ts - 1),
+                                    (v[win] + 1) * 0.5 * (ts - 1))
         zbuf[win] = depth[win]
     return img
 
 
-def _degrade(img, rng, cv2, level: float):
+def _warp_perspective(tex, H, width, height):
+    """Image of ``tex`` under the homography H (texture px -> image px),
+    sampled by inverse mapping with edge replication."""
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    src = np.einsum("ij,jhw->ihw", np.linalg.inv(H),
+                    np.stack([xs, ys, np.ones_like(xs)]))
+    return _sample_bilinear(tex, src[0] / src[2], src[1] / src[2])
+
+
+def _degrade(img, rng, level: float):
     """Photometric degradation: blur + exposure/gamma jitter + sensor noise.
 
     The closest available proxy for the reference's real-image protocol
@@ -132,7 +163,7 @@ def _degrade(img, rng, cv2, level: float):
     out = img.astype(np.float32) / 255.0
     sig = rng.uniform(0.0, 0.8 * level)
     if sig > 0.05:
-        out = cv2.GaussianBlur(out, (0, 0), sig)
+        out = ndimage.gaussian_filter(out, sig, mode="mirror")
     # Vignetting: cos^4-like radial falloff up to 25% * level at corners.
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     r2 = (((xx - w / 2) / (w / 2)) ** 2 + ((yy - h / 2) / (h / 2)) ** 2) / 2
@@ -148,15 +179,6 @@ def _degrade(img, rng, cv2, level: float):
 def make_dataset(outdir: str, num_images: int = 8, width=640, height=480,
                  f=400.0, seed=0, scene: str = "plane",
                  camera: str = "SIMPLE_PINHOLE", degrade: float = 0.0):
-    import cv2
-    import jax
-    jax.config.update("jax_platforms", "cpu")  # data prep is host work
-    import jax.numpy as jnp
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from privacy_preserving_sfm_tpu.ops import lie
-
     if camera == "SIMPLE_PINHOLE":
         cam_params = [f, width / 2, height / 2]
     elif camera == "OPENCV":
@@ -176,8 +198,8 @@ def make_dataset(outdir: str, num_images: int = 8, width=640, height=480,
 
     # High-contrast smooth texture(s).
     tex_size = 1600
-    tex = _make_texture(rng, tex_size, cv2)
-    box_textures = [_make_texture(rng, 800, cv2) for _ in BOX_FACETS] \
+    tex = _make_texture(rng, tex_size)
+    box_textures = [_make_texture(rng, 800) for _ in BOX_FACETS] \
         if scene == "box" else None
 
     # Plane: X(u, v) = (u, v, z0 + ax u + ay v), (u, v) in [-S, S]^2.
@@ -208,25 +230,22 @@ def make_dataset(outdir: str, num_images: int = 8, width=640, height=480,
         ang = np.linalg.norm(ax) + 1e-12
         q_tilt = np.concatenate([[np.cos(ang / 2)],
                                  np.sin(ang / 2) * ax / ang])
-        q = np.asarray(lie.quat_multiply(jnp.asarray(q_tilt),
-                                         jnp.asarray(q_yaw)))
-        R = np.asarray(lie.quat_to_rotmat(jnp.asarray(q)))
+        R = lie_np.quat_to_rotmat(q_tilt) @ lie_np.quat_to_rotmat(q_yaw)
+        q = lie_np.rotmat_to_quat(R)
         t = -R @ C
         if scene == "box":
             img = _render_box_view(K, R, t, box_textures, width, height,
-                                   cv2, pix=dist_pix)
+                                   pix=dist_pix)
         else:
             # Homography texture -> image: world point X = M [u, v, 1]^T,
             # so x ~ K (R X + t) = K (R M + t [0,0,1]) [u,v,1]^T.
             H = K @ (R @ M + t[:, None]
                      @ np.array([[0.0, 0.0, 1.0]])) @ T
-            img = cv2.warpPerspective(tex, H, (width, height),
-                                      flags=cv2.INTER_LINEAR,
-                                      borderMode=cv2.BORDER_REPLICATE)
+            img = _warp_perspective(tex, H, width, height)
         if degrade > 0:
-            img = _degrade(img, rng, cv2, degrade)
+            img = _degrade(img, rng, degrade)
         name = f"img{i:03d}.png"
-        cv2.imwrite(os.path.join(outdir, name), img)
+        png.write_png(os.path.join(outdir, name), img)
         g = R @ np.array([0.0, 1.0, 0.0])
         with open(os.path.join(outdir, name + ".gravity.txt"), "w") as fo:
             fo.write(f"{g[0]} {g[1]} {g[2]}\n")
